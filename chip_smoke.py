@@ -5,19 +5,29 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. report the card (name, power limit), CUDA and nvcc versions;
-  2. build the hand-written kernels from viorb_tpu_torch/csrc/ with nvcc;
-  3. hold each kernel to its plain PyTorch version on the card, at the
-     shapes the tracking step gives it (bit-equality for FAST);
+  2. build the hand-written kernels from viorb_tpu_torch/csrc/ with nvcc
+     (one library, two kernel entries);
+  3. hold each kernel entry to its plain PyTorch version on the card, at
+     the shapes the tracking step gives it, with torch.equal: the
+     single-image FAST score map on 24 level images, and the fused
+     pyramid-wide FAST + per-cell maximum/argmax on the pyramids of a
+     random, a rendered and a constant frame;
   4. render a 16-frame 752x480 arc, build a 4096-slot map from frame 0 and
      track frames 1-15 with OrbExtractor(n_features=1000): every frame
      must have > 30 inliers and a pose within 3 cm / 0.5 deg of the
-     renderer's ground truth, FAST must have run through its kernel on
-     all 8 levels of every frame, and the first frames must agree with
-     the port's CPU path (which tests/test_torch_*.py hold to the JAX
-     reference);
-  5. time the FAST kernel against its plain version per level, the
-     extract / match / pose-LM stages per frame, and the whole step over
-     a 200-frame replay, with CUDA events after warm-up.
+     renderer's ground truth, FAST + cell argmax must have been exactly
+     one fused launch a frame and no single-image launch, frame 1's
+     features must equal, field by field, those computed on the card
+     through the plain halves, and the first frames must agree with the
+     port's CPU path (which tests/test_torch_*.py hold to the JAX
+     reference). Then the per-level entry points (fast_score_map +
+     grid_topk_keypoints) are driven over frame 1's pyramid and held to
+     the fused path;
+  5. time the fused launch, the 8 single-level launches, their plain
+     versions and an empty kernel launch (device time, host run ahead),
+     the wrappers back to back on the host clock, the extract / match /
+     pose-LM stages per frame, and the whole step over a 200-frame replay,
+     with CUDA events after warm-up.
 
 Prints one JSON line of kernels before the last line, and as the last line
 {"ok": true, "device": {...}}. It needs the repository around it: run from
@@ -26,6 +36,7 @@ anywhere else, the package import fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -39,6 +50,14 @@ REPLAY_FRAMES = 200
 MAX_POS_ERR_M = 0.03
 MAX_ROT_ERR_DEG = 0.5
 MIN_INLIERS = 30
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): the yardsticks of
+# each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# What the kernel executes for one scored pixel: 2 x (16 + 16 + 8) three-input
+# integer min/max, 2 f32 subtractions, 2 f32 max.
+FAST_OPS_PER_PIXEL = 84
 
 
 def _check(ok: bool, what: str) -> None:
@@ -77,6 +96,29 @@ def _event_ms(fn, reps: int, warmup: int = 3, device_only: bool = False) -> floa
     return start.elapsed_time(end) / reps
 
 
+def _host_us(fn, reps: int) -> float:
+    """Mean microseconds of host time one call of fn() takes to return,
+    back to back, on the host clock (the device is not waited for)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _bound(n_bytes: int, n_ops: int):
+    """(least ms the card could take, which of the two limits it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _pose_errors(r_cw, t_cw, r_wc_gt, c_w_gt):
     """(camera-center error m, rotation error deg) of an estimate against
     the renderer's ground truth, computed in float64 on the host."""
@@ -101,10 +143,22 @@ def main() -> int:
 
     import numpy as np
 
+    from unittest import mock
+
+    from viorb_tpu_torch import default_device
     from viorb_tpu_torch.cuda_build import build_info, find_nvcc, load_library
+    from viorb_tpu_torch.features import extractor as extractor_module
     from viorb_tpu_torch.features import fast_cuda
     from viorb_tpu_torch.features.extractor import OrbExtractor
-    from viorb_tpu_torch.features.fast import _fast_score_map_torch, fast_score_map
+    from viorb_tpu_torch.features.fast import (
+        _fast_cells_pyramid_torch,
+        _fast_score_map_torch,
+        fast_cells_pyramid,
+        fast_score_map,
+        grid_topk_keypoints,
+        topk_from_cells,
+    )
+    from viorb_tpu_torch.features.orb import EDGE_MARGIN
     from viorb_tpu_torch.features.pyramid import build_pyramid
     from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
     from viorb_tpu_torch.interop import carry_from_numpy
@@ -116,7 +170,7 @@ def main() -> int:
     # ---- 1. report -------------------------------------------------------
     card = _card()
     tag = f"[{card}]"
-    dev = torch.device("cuda", 0)
+    dev = default_device()
     nvcc = find_nvcc()
     nvcc_version = subprocess.run(
         [nvcc, "--version"], capture_output=True, text=True, check=True
@@ -136,7 +190,7 @@ def main() -> int:
     cam = PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
     extractor = OrbExtractor(n_features=1000)
     r_wc, c_w = synthetic.make_trajectory(N_FRAMES, dt=0.1)
-    planes = synthetic.stack_planes(synthetic.default_room(0), device=dev)
+    planes = synthetic.stack_planes(synthetic.default_room(0))  # on the card by default
     frames = [
         synthetic.to_uint8(synthetic.render_frame(cam, r_wc[i], c_w[i], planes))
         for i in range(N_FRAMES)
@@ -144,10 +198,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     random_frame = torch.randint(0, 256, (cam.height, cam.width), generator=gen, dtype=torch.uint8)
     pyramids = {
-        "random": build_pyramid(random_frame.to(dev).float(), extractor.n_levels, extractor.scale_factor),
-        "rendered": build_pyramid(frames[0].float(), extractor.n_levels, extractor.scale_factor),
+        name: build_pyramid(frame.to(dev).float(), extractor.n_levels, extractor.scale_factor)
+        # integer scores tie constantly: the random frame is the hard case for the argmax
+        for name, frame in (("random", random_frame), ("rendered", frames[0]))
     }
-    fast_err = 0.0
+    # every level exactly constant: all scores 0, so every cell's first maximum is index 0
+    pyramids["constant"] = [torch.full(tuple(p.shape), 100.0, device=dev) for p in pyramids["random"]]
+    fast_err = cells_err = 0.0
     for name, pyr in pyramids.items():
         for lvl, img in enumerate(pyr):
             got = fast_score_map(img)
@@ -155,8 +212,23 @@ def main() -> int:
             torch.cuda.synchronize()
             _check(torch.equal(got, want), f"FAST kernel != plain on {name} level {lvl} {tuple(img.shape)}")
             fast_err = max(fast_err, float((got - want).abs().max()))
-        print(f"FAST kernel == plain (bit-equal) on the {name} frame's 8 levels: "
-              + ", ".join(f"{tuple(p.shape)}" for p in pyr))
+        got_best, got_arg, got_offs = fast_cells_pyramid(pyr, extractor.cell, EDGE_MARGIN)
+        want_best, want_arg, want_offs = _fast_cells_pyramid_torch(pyr, extractor.cell, EDGE_MARGIN)
+        torch.cuda.synchronize()
+        _check(got_offs == want_offs and got_best.shape == want_best.shape,
+               f"fused FAST cells: layout differs on the {name} pyramid")
+        _check(torch.equal(got_best, want_best), f"fused FAST cells: cell_best != plain on the {name} pyramid")
+        _check(torch.equal(got_arg, want_arg), f"fused FAST cells: cell_arg != plain on the {name} pyramid")
+        if name == "constant":
+            _check(not bool(got_arg.any()) and not bool(got_best.any()),
+                   "fused FAST cells: a constant image must give score 0 at index 0 in every cell")
+        else:
+            _check(int((got_best > 0).sum()) > got_best.numel() // 4, f"{name} pyramid has too few corners")
+        cells_err = max(cells_err, float((got_best - want_best).abs().max()),
+                        float((got_arg - want_arg).abs().max()))
+        print(f"FAST kernel == plain (torch.equal) on the {name} frame's 8 levels: score maps "
+              + ", ".join(f"{tuple(p.shape)}" for p in pyr)
+              + f"; fused cell_best and cell_arg of {got_offs[-1]} cells")
 
     # ---- 4. the slice ----------------------------------------------------
     dmap = synthetic.lift_features_to_map(
@@ -173,18 +245,21 @@ def main() -> int:
     r0, t0 = r_wc[0].T, -r_wc[0].T @ c_w[0]
     r1, t1 = r_wc[1].T, -r_wc[1].T @ c_w[1]
     vel_r = r1 @ r0.T
-    carry0 = carry_from_numpy(r0, t0, vel_r, t1 - vel_r @ t0, device=dev)
+    carry0 = carry_from_numpy(r0, t0, vel_r, t1 - vel_r @ t0)  # on the card by default
+    _check(carry0.r_cw.is_cuda and planes.textures.is_cuda and dmap.xyz.is_cuda,
+           "entry points must default to the card")
 
-    fast_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
     carry, outs = carry0, []
     for i in range(1, N_FRAMES):
         carry, out = step(carry, frames[i], dmap)
         outs.append(out)
     torch.cuda.synchronize()
-    fast_launches = fast_cuda.LAUNCHES
+    cell_launches = fast_cuda.CELL_LAUNCHES
     _check(
-        fast_launches == extractor.n_levels * (N_FRAMES - 1),
-        f"FAST kernel launched {fast_launches} times for {N_FRAMES - 1} frames",
+        cell_launches == N_FRAMES - 1 and fast_cuda.LAUNCHES == 0,
+        f"{N_FRAMES - 1} frames made {cell_launches} fused launches and "
+        f"{fast_cuda.LAUNCHES} single-image launches; expected one fused launch a frame",
     )
     for i, out in enumerate(outs, start=1):
         _check(out.r_cw.shape == (3, 3) and out.t_cw.shape == (3,), f"frame {i}: pose shapes")
@@ -197,8 +272,47 @@ def main() -> int:
             n_inl > MIN_INLIERS and pos < MAX_POS_ERR_M and rot < MAX_ROT_ERR_DEG,
             f"frame {i}: {n_inl} inliers, {pos:.4f} m, {rot:.3f} deg",
         )
-    print(f"tracked {N_FRAMES - 1} frames: FAST kernel launches {fast_launches} "
-          f"({extractor.n_levels} per frame)")
+    print(f"tracked {N_FRAMES - 1} frames: fused FAST + cell-argmax launches {cell_launches} "
+          f"(1 per frame), single-image FAST launches 0")
+
+    # frame 1's features through the kernel against the plain halves, both
+    # on the card: every field identical
+    feats_kernel = extractor._extract(frames[1])
+    before = fast_cuda.CELL_LAUNCHES
+    with mock.patch.object(extractor_module, "fast_cells_pyramid", _fast_cells_pyramid_torch):
+        feats_plain = extractor._extract(frames[1])
+    torch.cuda.synchronize()
+    _check(fast_cuda.CELL_LAUNCHES == before and feats_plain.xy.is_cuda,
+           "the plain halves must run on the card without the kernel")
+    for field, a, b in zip(feats_kernel._fields, feats_kernel, feats_plain):
+        _check(a.dtype == b.dtype and torch.equal(a, b), f"frame 1 FrameFeatures.{field}: kernel != plain halves")
+    print(f"frame 1 FrameFeatures identical through the kernel and the plain halves "
+          f"({int(feats_kernel.valid.sum())} valid of {extractor.capacity})")
+
+    # the per-level entry points, driven on their own: frame 1's pyramid
+    # through fast_score_map + grid_topk_keypoints, held to the fused path
+    pyr1 = build_pyramid(frames[1].float(), extractor.n_levels, extractor.scale_factor)
+    best1, arg1, offs1 = fast_cells_pyramid(pyr1, extractor.cell, EDGE_MARGIN)
+    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+    per_level = [
+        grid_topk_keypoints(fast_score_map(img), extractor.level_quota[lvl], extractor.cell,
+                            extractor.fast_min_threshold, EDGE_MARGIN)
+        for lvl, img in enumerate(pyr1)
+    ]
+    torch.cuda.synchronize()
+    fast_launches = fast_cuda.LAUNCHES
+    _check(fast_launches == extractor.n_levels and fast_cuda.CELL_LAUNCHES == 0,
+           f"per-level path: {fast_launches} single-image launches for {extractor.n_levels} levels")
+    for lvl, got in enumerate(per_level):
+        want = topk_from_cells(
+            best1[offs1[lvl]:offs1[lvl + 1]], arg1[offs1[lvl]:offs1[lvl + 1]],
+            pyr1[lvl].shape[1] // extractor.cell, extractor.level_quota[lvl], extractor.cell,
+            extractor.fast_min_threshold,
+        )
+        for g, w in zip(got, want):
+            _check(torch.equal(g, w), f"per-level path != fused path on level {lvl}")
+    print(f"per-level path (fast_score_map + grid_topk_keypoints) == fused path on frame 1: "
+          f"{fast_launches} single-image launches")
 
     # the CPU path (plain kernels, held to the JAX reference by the tests)
     # on the same state agrees with the card on the first frames
@@ -229,18 +343,49 @@ def main() -> int:
         print(f"  sync: {s}")
 
     # ---- 5. times --------------------------------------------------------
-    kernel_ms, plain_ms, call_ms = [], [], []
-    for lvl, img in enumerate(pyramids["rendered"]):
+    pyr = pyramids["rendered"]
+    kernel_ms, plain_ms = [], []
+    for lvl, img in enumerate(pyr):
         k = _event_ms(lambda: fast_score_map(img), reps=200, device_only=True)
         p = _event_ms(lambda: _fast_score_map_torch(img), reps=20, device_only=True)
-        w = _event_ms(lambda: fast_score_map(img), reps=200)
         kernel_ms.append(k)
         plain_ms.append(p)
-        call_ms.append(w)
         print(f"{tag} FAST level {lvl} {tuple(img.shape)}: device time kernel {k * 1e3:.2f} us, "
-              f"plain {p * 1e3:.2f} us; back-to-back wrapper calls {w * 1e3:.2f} us")
-    print(f"{tag} FAST all 8 levels, device time: kernel {sum(kernel_ms):.4f} ms, "
-          f"plain {sum(plain_ms):.4f} ms; wrapper calls {sum(call_ms):.4f} ms")
+              f"plain {p * 1e3:.2f} us")
+    fused_ms = _event_ms(lambda: fast_cells_pyramid(pyr, extractor.cell, EDGE_MARGIN),
+                         reps=200, device_only=True)
+    fused_plain_ms = _event_ms(lambda: _fast_cells_pyramid_torch(pyr, extractor.cell, EDGE_MARGIN),
+                               reps=10, device_only=True)
+    empty_launch = load_library(fast_cuda.LIB_NAME).viorb_empty_launch
+    empty_launch.argtypes = [ctypes.c_void_p]
+    empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    _check(empty_launch(stream) == 0, "empty kernel launch failed")
+    floor_ms = _event_ms(lambda: empty_launch(stream), reps=1000, device_only=True)
+    score_call_us = sum(_host_us(lambda: fast_score_map(img), reps=200) for img in pyr)
+    fused_call_us = _host_us(lambda: fast_cells_pyramid(pyr, extractor.cell, EDGE_MARGIN), reps=200)
+
+    # the least the card could take: every input read once and every output
+    # written once at the HBM rate, or the scored pixels' operations at the
+    # f32 peak, whichever is longer (no step of the kernel depends on the data)
+    pixels = sum(img.numel() for img in pyr)
+    n_cells = got_offs[-1]
+    scored_maps = sum((img.shape[0] - 6) * (img.shape[1] - 6) for img in pyr)
+    scored_cells = sum(
+        (min(h - EDGE_MARGIN, h // 16 * 16) - EDGE_MARGIN) * (min(w - EDGE_MARGIN, w // 16 * 16) - EDGE_MARGIN)
+        for h, w in (img.shape for img in pyr)
+    )
+    score_bound_ms, score_bound_by = _bound(8 * pixels, FAST_OPS_PER_PIXEL * scored_maps)
+    fused_bound_ms, fused_bound_by = _bound(4 * pixels + 12 * n_cells, FAST_OPS_PER_PIXEL * scored_cells)
+    print(f"{tag} FAST score maps, 8 single-level launches, device time: kernel {sum(kernel_ms) * 1e3:.2f} us, "
+          f"plain {sum(plain_ms) * 1e3:.2f} us, bound {score_bound_ms * 1e3:.2f} us ({score_bound_by}: "
+          f"{8 * pixels} B, {FAST_OPS_PER_PIXEL * scored_maps} ops); wrapper calls back to back "
+          f"{score_call_us:.1f} us of host time")
+    print(f"{tag} FAST + cell argmax, all 8 levels in ONE launch, device time: kernel {fused_ms * 1e3:.2f} us, "
+          f"plain {fused_plain_ms * 1e3:.2f} us, bound {fused_bound_ms * 1e3:.2f} us ({fused_bound_by}: "
+          f"{4 * pixels + 12 * n_cells} B, {FAST_OPS_PER_PIXEL * scored_cells} ops); wrapper calls back to back "
+          f"{fused_call_us:.1f} us of host time")
+    print(f"{tag} empty kernel launch, back to back on the device: {floor_ms * 1e3:.2f} us")
 
     # per-stage inputs, frame by frame, so each stage is timed alone
     sigma2 = torch.from_numpy(extractor.level_sigma2()).to(dev)
@@ -342,16 +487,37 @@ def main() -> int:
     else:
         print(f"{tag} device busy share: not measured (profiler recorded no device time)")
 
-    print(json.dumps({"kernels": [{
-        "name": "fast_score_map (K1, FAST-9 arc strength)",
-        "route": "cuda",
-        "source": "viorb_tpu_torch/csrc/fast_score.cu",
-        "replaces": "viorb_tpu/features/fast_pallas.py:30",
-        "launches": fast_launches,
-        "max_abs_err": fast_err,
-        "ms": sum(kernel_ms),
-        "plain_ms": sum(plain_ms),
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "fast_score_map (K1, FAST-9 arc strength, one image a launch)",
+            "route": "cuda",
+            "source": "viorb_tpu_torch/csrc/fast_score.cu",
+            "replaces": "viorb_tpu/features/fast_pallas.py:30",
+            "path": "fast_score_map + grid_topk_keypoints over the 8 levels of frame 1",
+            "launches": fast_launches,
+            "max_abs_err": fast_err,
+            "ms": sum(kernel_ms),
+            "plain_ms": sum(plain_ms),
+            "bound_ms": score_bound_ms,
+            "bound_by": score_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fast_cells_pyramid (K1+K3 fused: FAST, border mask, per-cell max/argmax, 8 levels a launch)",
+            "route": "cuda",
+            "source": "viorb_tpu_torch/csrc/fast_score.cu",
+            "replaces": "viorb_tpu/features/fast_pallas.py:30, viorb_tpu/features/fast.py:79",
+            "path": f"make_tracking_step over {N_FRAMES - 1} frames",
+            "launches": cell_launches,
+            "max_abs_err": cells_err,
+            "ms": fused_ms,
+            "plain_ms": fused_plain_ms,
+            "bound_ms": fused_bound_ms,
+            "bound_by": fused_bound_by,
+            "library_ms": None,
+            "empty_launch_ms": floor_ms,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -88,11 +88,11 @@ def _full_frame_extraction_agrees_with_reference():
     ref_cam = RefCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
     cam = camera_from_fields(ref_cam)
     r_wc, c_w = synthetic.make_trajectory(1, dt=0.1)
-    planes = synthetic.stack_planes(synthetic.default_room(0))
+    planes = synthetic.stack_planes(synthetic.default_room(0), device="cpu")
     frame = synthetic.to_uint8(synthetic.render_frame(cam, r_wc[0], c_w[0], planes))
 
     ref = RefExtractor(n_features=1000).extract(frame.numpy())
-    out = OrbExtractor(n_features=1000).extract(frame)
+    out = OrbExtractor(n_features=1000).extract(frame, device="cpu")
 
     def keyed(xy, level, valid):
         return {

@@ -115,7 +115,7 @@ def _reference_built_state():
         feat_valid=np.asarray(feats.valid),
     )
     # the map reaches the port through interop, as the tracking test's does
-    dmap = device_map_from_numpy(**fields)
+    dmap = device_map_from_numpy(**fields, device="cpu")
     for key, field in (("pts_xyz", "xyz"), ("pts_desc", "desc_pm1"), ("pts_valid", "valid")):
         np.testing.assert_array_equal(getattr(dmap, field).numpy(), args[key])
     return REF_CAM, args

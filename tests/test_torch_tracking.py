@@ -59,8 +59,8 @@ def _steps_match_reference(scene):
         *[jnp.asarray(np.asarray(start[k], np.float32)) for k in ref_loop.TrackCarry._fields]
     )
     ref_step = ref_loop.make_tracking_step(REF_CAM, RefExtractor(n_features=N_FEATURES))
-    carry = carry_from_numpy(**start)
-    dmap = device_map_from_numpy(**fields)
+    carry = carry_from_numpy(**start, device="cpu")
+    dmap = device_map_from_numpy(**fields, device="cpu")
     step = make_tracking_step(cam, OrbExtractor(n_features=N_FEATURES))
 
     # the port's own map builder gives the same map from the same frame
@@ -88,12 +88,12 @@ def _interop_carries_reference_state(scene):
     cam, *_, frames = scene
     assert tuple(cam) == tuple(REF_CAM)
     ref = RefExtractor(n_features=N_FEATURES).extract(frames[0].numpy())
-    feats = features_from_numpy(*[np.asarray(x) for x in ref])
+    feats = features_from_numpy(*[np.asarray(x) for x in ref], device="cpu")
     np.testing.assert_array_equal(
         feats.descriptors_pm1().numpy(), np.asarray(ref.descriptors_pm1(jnp.float32))
     )
     np.testing.assert_array_equal(feats.level.numpy(), np.asarray(ref.level))
-    for got, want in zip(identity_carry(), ref_loop.identity_carry()):
+    for got, want in zip(identity_carry(device="cpu"), ref_loop.identity_carry()):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

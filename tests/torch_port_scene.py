@@ -23,7 +23,7 @@ def render_scene(n_frames):
     cam = camera_from_fields(REF_CAM)
     r_wc, c_w = synthetic.make_trajectory(n_frames, dt=0.1)
     rooms = synthetic.default_room(0)
-    planes = synthetic.stack_planes(rooms)
+    planes = synthetic.stack_planes(rooms, device="cpu")
     frames = [
         synthetic.to_uint8(synthetic.render_frame(cam, r_wc[i], c_w[i], planes))
         for i in range(n_frames)

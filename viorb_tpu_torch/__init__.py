@@ -10,6 +10,9 @@ Where the JAX package wrote a Pallas kernel for the TPU, the port has a
 hand-written CUDA kernel beside a plain PyTorch version of the same
 function: a CUDA tensor goes to the kernel (or raises), a CPU tensor to
 the plain version. Everything else is plain PyTorch.
+
+Entry points that build tensors take `device=None`, which means the card
+(`default_device()`, raising without one); `device="cpu"` asks for the CPU.
 """
 
 __version__ = "0.1.0"
@@ -23,3 +26,7 @@ import torch as _torch
 # off.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+from viorb_tpu_torch.device import default_device  # noqa: E402
+
+__all__ = ["default_device"]

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from viorb_tpu_torch.features.fast import fast_score_map, grid_topk_keypoints
+from viorb_tpu_torch.device import default_device
+from viorb_tpu_torch.features.fast import fast_cells_pyramid, topk_from_cells
 from viorb_tpu_torch.features.orb import (
     EDGE_MARGIN,
     PATCH_HALF,
@@ -81,8 +82,9 @@ class OrbExtractor:
         return np.array([s * s for s in self.scales], np.float32)
 
     def _extract(self, image: torch.Tensor) -> FrameFeatures:
-        """Pyramid + per-level FAST/top-K, then ONE batched patch gather /
-        orientation / descriptor pass for all levels' keypoints. The image
+        """Pyramid, FAST + per-cell maxima of all levels at once (one kernel
+        launch on the card), per-level top-K, then ONE batched patch gather
+        / orientation / descriptor pass for all levels' keypoints. The image
         may be uint8 (converted on its device) or f32."""
         image = image.to(torch.float32)
         dev = image.device
@@ -104,17 +106,20 @@ class OrbExtractor:
         ys_all, xs_all, out_xy, resp_all, lvl_all, valid_all = (
             [], [], [], [], [], []
         )
+        cell_best, cell_arg, cell_offs = fast_cells_pyramid(
+            pyramid, cell=self.cell, border=EDGE_MARGIN
+        )
         for l, img in enumerate(pyramid):
             quota = self.level_quota[l]
             if quota == 0:
                 continue
-            score = fast_score_map(img)
-            ys, xs, resp, valid = grid_topk_keypoints(
-                score,
+            ys, xs, resp, valid = topk_from_cells(
+                cell_best[cell_offs[l] : cell_offs[l + 1]],
+                cell_arg[cell_offs[l] : cell_offs[l + 1]],
+                img.shape[1] // self.cell,
                 quota,
                 cell=self.cell,
                 min_score=self.fast_min_threshold,
-                border=EDGE_MARGIN,
             )
             s = self.scales[l]
             out_xy.append(
@@ -138,7 +143,13 @@ class OrbExtractor:
             valid=torch.cat(valid_all),
         )
 
-    def extract(self, image) -> FrameFeatures:
-        """image: (H,W) u8/f32 tensor or array (0..255). Runs on the
-        tensor's device; arrays go to the CPU."""
-        return self._extract(torch.as_tensor(image))
+    def extract(self, image, device=None) -> FrameFeatures:
+        """image: (H,W) u8/f32 tensor or array (0..255). `device` says where
+        to run. Left out, a tensor already on an accelerator stays there,
+        and an array or a CPU tensor, which carries no request, goes to the
+        card (`viorb_tpu_torch.default_device()`); `device="cpu"` runs on
+        the CPU."""
+        image = torch.as_tensor(image)
+        if device is None:
+            device = default_device() if image.device.type == "cpu" else image.device
+        return self._extract(image.to(device))

@@ -4,7 +4,8 @@ The tracking step has no weights: its state is the local map, the carry,
 the camera and the extractor configuration. These builders take that
 state as plain numpy arrays and numbers — for instance the JAX package's
 arrays after `np.asarray` — so the port can start from exactly the state
-another implementation holds.
+another implementation holds. `device=None` puts the state on the card
+(`viorb_tpu_torch.default_device()`); `device="cpu"` on the CPU.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import FrameFeatures
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap, TrackCarry
@@ -36,6 +38,7 @@ def device_map_from_numpy(
 ) -> DeviceMap:
     """DeviceMap from its fields as arrays. desc_pm1 may be any float type
     holding -1/+1/0 (a bf16 map arrives as float32)."""
+    device = resolve_device(device)
     return DeviceMap(
         xyz=_f32(xyz, device),
         desc_pm1=_f32(desc_pm1, device),
@@ -47,6 +50,7 @@ def device_map_from_numpy(
 
 
 def carry_from_numpy(r_cw, t_cw, vel_r, vel_t, device=None) -> TrackCarry:
+    device = resolve_device(device)
     return TrackCarry(
         _f32(r_cw, device), _f32(t_cw, device), _f32(vel_r, device), _f32(vel_t, device)
     )
@@ -64,6 +68,7 @@ def camera_from_fields(fields: Mapping[str, Any] | Any) -> PinholeCamera:
 def features_from_numpy(
     xy, response, angle, level, desc01, valid, device=None
 ) -> FrameFeatures:
+    device = resolve_device(device)
     return FrameFeatures(
         xy=_f32(xy, device),
         response=_f32(response, device),

@@ -15,6 +15,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap
@@ -85,6 +86,9 @@ class PlaneArrays(NamedTuple):
 
 
 def stack_planes(planes: List[Plane], device=None) -> PlaneArrays:
+    """The room on `device`: the card unless the caller names another."""
+    device = resolve_device(device)
+
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
 from viorb_tpu_torch.geometry.so3 import normalize_rotation
@@ -94,6 +95,9 @@ def make_tracking_step(cam: PinholeCamera, extractor: OrbExtractor):
 
 
 def identity_carry(device=None) -> TrackCarry:
+    """The carry at rest at the origin, on the card unless `device` says
+    otherwise."""
+    device = resolve_device(device)
     eye = torch.eye(3, dtype=torch.float32, device=device)
     zero = torch.zeros(3, dtype=torch.float32, device=device)
     return TrackCarry(eye, zero, eye.clone(), zero.clone())
