@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's monocular tracking step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's monocular tracking cores and mapping
+functions on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,21 +14,34 @@ Phases, in order; any failure raises and exits non-zero:
      pyramid-wide FAST + per-cell maximum/argmax on the pyramids of a
      random, a rendered and a constant frame;
   4. render a 16-frame 752x480 arc, build a 4096-slot map from frame 0 and
-     track frames 1-15 with OrbExtractor(n_features=1000): every frame
-     must have > 30 inliers and a pose within 3 cm / 0.5 deg of the
-     renderer's ground truth, FAST + cell argmax must have been exactly
-     one fused launch a frame and no single-image launch, frame 1's
-     features must equal, field by field, those computed on the card
-     through the plain halves, and the first frames must agree with the
-     port's CPU path (which tests/test_torch_*.py hold to the JAX
-     reference). Then the per-level entry points (fast_score_map +
-     grid_topk_keypoints) are driven over frame 1's pyramid and held to
-     the fused path;
-  5. time the fused launch, the 8 single-level launches, their plain
+     track frames 1-15 with OrbExtractor(n_features=1000) through each of
+     the three cores (the 2x4 tracking step, the pipeline core and the
+     streaming core at LM 4x10), each ONE CUDA graph: every frame must have
+     > 30 inliers and a pose within 3 cm / 0.5 deg of the renderer's ground
+     truth; FAST + cell argmax must have been exactly one fused launch a
+     frame inside each graph (launches captured x replays) and no
+     single-image launch; a replay must make 0 host syncs and equal the
+     eager function on frames 1-3; the 15 px -> 30 px retry must select
+     what a separate match at the rule's radius gives; a graph captured
+     while a second thread allocates and launches on the card must hold
+     its own launch alone and lose none of the thread's; frame 1's features
+     must equal, field by field, those computed on the card through the
+     plain halves, and the first frames must agree with the port's CPU
+     path (which tests/test_torch_*.py hold to the JAX reference). Then
+     the per-level entry points (fast_score_map + grid_topk_keypoints) are
+     driven over frame 1's pyramid and held to the fused path;
+  5. the mapping functions on the card against the port's CPU path:
+     two_view_init on matches between frames 0 and 8 (pose against the
+     renderer's ground truth up to scale), triangulate_between on the same
+     two frames at 1000 features, vision_ba at K=10, M=2048, R=8;
+  6. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
-     pose-LM stages per frame, and the whole step over a 200-frame replay,
-     with CUDA events after warm-up.
+     pose-LM stages per frame, each core as a graph over a 200-frame
+     replay and eager over 30 frames, kernels a frame and the device busy
+     share of each
+     graphed core, and the mapping functions, with CUDA events after
+     warm-up.
 
 Prints one JSON line of kernels before the last line, and as the last line
 {"ok": true, "device": {...}}. It needs the repository around it: run from
@@ -41,12 +55,16 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
 N_FRAMES = 16  # frame 0 builds the map, frames 1-15 are tracked
 MAP_SLOTS = 4096
 REPLAY_FRAMES = 200
+EAGER_REPLAY_FRAMES = 30  # the eager cores are timed over two cycles of the arc
+INIT_FRAME = 8  # two-view init and triangulation pair frame 0 with this one
+BA_K, BA_M, BA_R, BA_ITERS = 10, 2048, 8, 10  # the local-BA size of the reference's benchmark
 MAX_POS_ERR_M = 0.03
 MAX_ROT_ERR_DEG = 0.5
 MIN_INLIERS = 30
@@ -135,6 +153,64 @@ def _pose_errors(r_cw, t_cw, r_wc_gt, c_w_gt):
     return float(np.linalg.norm(c_est - np.asarray(c_w_gt, np.float64))), float(rot)
 
 
+def _leaves(obj):
+    """The tensors of a nest of (named) tuples, in order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [leaf for child in obj for leaf in _leaves(child)]
+
+
+def _count_syncs(fn) -> list:
+    """The host syncs PyTorch reports while fn() runs."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+
+
+def _ba_problem(seed: int = 0):
+    """A local-BA problem as numpy arrays: BA_K keyframes on an arc looking
+    at BA_M landmarks, each seen from BA_R of them, 0.5 px noise, 10 %
+    empty slots, perturbed start. Returns (observations, state) as dicts of
+    the interop functions' arguments."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k, m, r = BA_K, BA_M, BA_R
+    pts = np.stack([rng.uniform(-4, 4, m), rng.uniform(-2.5, 2.5, m), rng.uniform(4, 10, m)], 1)
+
+    def rodrigues(w):
+        th = np.linalg.norm(w)
+        a = w / th
+        kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * (kx @ kx)
+
+    r_cw = np.stack([rodrigues(np.array([0.01, 0.03 * (i - k / 2), 0.005]) + 1e-9) for i in range(k)])
+    t_cw = np.stack([np.array([-0.15 * (i - k / 2), 0.02 * i, 0.01 * i]) for i in range(k)])
+    kf_idx = np.stack([rng.permutation(k)[:r] for _ in range(m)])
+    pc = np.einsum("mrij,mj->mri", r_cw[kf_idx], pts) + t_cw[kf_idx]
+    uv = np.stack([450.0 * pc[..., 0] / pc[..., 2] + 376.0, 450.0 * pc[..., 1] / pc[..., 2] + 240.0], -1)
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    obs = dict(kf_idx=kf_idx, uv=uv, inv_sigma2=1.0 / (1.2 ** rng.integers(0, 8, (m, r))) ** 2,
+               valid=rng.random((m, r)) > 0.10)
+    state = dict(
+        r_cw=np.stack([rodrigues(rng.normal(0, 0.005, 3)) for _ in range(k)]) @ r_cw,
+        t_cw=t_cw + rng.normal(0, 0.02, (k, 3)),
+        points=pts + rng.normal(0, 0.05, (m, 3)),
+    )
+    return obs, state
+
+
 def main() -> int:
     import torch
 
@@ -147,6 +223,7 @@ def main() -> int:
 
     from viorb_tpu_torch import default_device
     from viorb_tpu_torch.cuda_build import build_info, find_nvcc, load_library
+    from viorb_tpu_torch.cuda_graph import WARMUP_CALLS, GraphedFunction
     from viorb_tpu_torch.features import extractor as extractor_module
     from viorb_tpu_torch.features import fast_cuda
     from viorb_tpu_torch.features.extractor import OrbExtractor
@@ -160,12 +237,27 @@ def main() -> int:
     )
     from viorb_tpu_torch.features.orb import EDGE_MARGIN
     from viorb_tpu_torch.features.pyramid import build_pyramid
+    from viorb_tpu_torch.features.matching import hamming_matrix, match_with_mask, valid_gate
     from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
-    from viorb_tpu_torch.interop import carry_from_numpy
+    from viorb_tpu_torch.geometry.so3 import normalize_rotation
+    from viorb_tpu_torch.interop import (
+        ba_observations_from_numpy,
+        carry_from_numpy,
+        vision_ba_state_from_numpy,
+    )
     from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.optim.ba import _vision_cost_and_chi2, vision_ba
     from viorb_tpu_torch.optim.pose_only import PoseObs, pose_optimization_tcw
-    from viorb_tpu_torch.slam.kernels import match_by_projection
-    from viorb_tpu_torch.slam.tracking_loop import DeviceMap, make_tracking_step
+    from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF
+    from viorb_tpu_torch.slam.kernels import match_by_projection, triangulate_between
+    from viorb_tpu_torch.slam.tracking_loop import (
+        DeviceMap,
+        TrackCarry,
+        make_pipeline_track_core,
+        make_streaming_track_core,
+        make_tracking_step,
+    )
+    from viorb_tpu_torch.solvers.two_view import sample_minimal_sets, two_view_from_samples, two_view_init
 
     # ---- 1. report -------------------------------------------------------
     card = _card()
@@ -238,6 +330,8 @@ def main() -> int:
     _check(dmap.xyz.shape == (MAP_SLOTS, 3) and n_map > 500, f"map of {n_map} points")
     print(f"map: {n_map} valid points of {MAP_SLOTS} slots")
     step = make_tracking_step(cam, extractor)
+    pipeline = make_pipeline_track_core(cam, extractor)
+    streaming = make_streaming_track_core(cam, extractor)
     # The carry starts at frame 0's true pose, moving with the true
     # frame 0 -> 1 motion. (From rest, frame 1 settles on the far wall's
     # rotation/translation ambiguity: 0.64 m / 6.3 deg in the JAX reference
@@ -249,31 +343,190 @@ def main() -> int:
     _check(carry0.r_cw.is_cuda and planes.textures.is_cuda and dmap.xyz.is_cuda,
            "entry points must default to the card")
 
-    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
-    carry, outs = carry0, []
-    for i in range(1, N_FRAMES):
-        carry, out = step(carry, frames[i], dmap)
-        outs.append(out)
-    torch.cuda.synchronize()
-    cell_launches = fast_cuda.CELL_LAUNCHES
-    _check(
-        cell_launches == N_FRAMES - 1 and fast_cuda.LAUNCHES == 0,
-        f"{N_FRAMES - 1} frames made {cell_launches} fused launches and "
-        f"{fast_cuda.LAUNCHES} single-image launches; expected one fused launch a frame",
-    )
-    for i, out in enumerate(outs, start=1):
-        _check(out.r_cw.shape == (3, 3) and out.t_cw.shape == (3,), f"frame {i}: pose shapes")
-        _check(bool(torch.isfinite(out.r_cw).all() and torch.isfinite(out.t_cw).all()),
-               f"frame {i}: pose not finite")
-        n_inl = int(out.n_inliers)
-        pos, rot = _pose_errors(out.r_cw, out.t_cw, r_wc[i], c_w[i])
-        print(f"frame {i:2d}: inliers {n_inl:3d}  pose error {pos * 100:.2f} cm {rot:.3f} deg")
+    def predict(c: TrackCarry):
+        return c.vel_r @ c.r_cw, c.vel_r @ c.t_cw + c.vel_t
+
+    def advance(c: TrackCarry, r_new, t_new) -> TrackCarry:
+        """What the pipeline's host does between frames, kept on the device
+        here: the constant-velocity carry from a core's new pose."""
+        r_new = normalize_rotation(r_new)
+        v_r = r_new @ c.r_cw.T
+        return TrackCarry(r_new, t_new, v_r, t_new - v_r @ c.t_cw)
+
+    # how each core is driven over the arc: (carry, frame) -> (carry, call
+    # arguments); results -> (carry, (r_cw, t_cw, inlier count))
+    def run_step(fn, c, i):
+        c, out = fn(c, frames[i], dmap)
+        return c, out, (out.r_cw, out.t_cw, out.n_inliers)
+
+    def run_pipeline(fn, c, i):
+        out = fn(frames[i], *predict(c), *dmap)
+        return advance(c, out[4], out[5]), out, (out[4], out[5], out[6].sum())
+
+    def run_streaming(fn, c, i):
+        c, out = fn(c, frames[i], *dmap)
+        return c, out, (out[4], out[5], out[6].sum())
+
+    cores = {
+        "tracking step (LM 2x4)": (step, run_step),
+        "pipeline core (LM 4x10)": (pipeline, run_pipeline),
+        "streaming core (LM 4x10)": (streaming, run_streaming),
+    }
+
+    # The first call of a core warms up, captures and replays. It belongs to
+    # set-up: the counts below are taken over the 15 tracked frames alone.
+    for name, (core, run) in cores.items():
+        t_cap = time.perf_counter()
+        run(core, carry0, 1)
+        torch.cuda.synchronize()
+        captured = core.captured()
+        print(f"{name}: warm-up + capture + first replay {time.perf_counter() - t_cap:.2f} s, "
+              f"kernel launches in the graph {captured}")
+        _check(captured == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1}],
+               f"{name}: the captured graph must hold exactly one fused K1 launch, got {captured}")
+
+    tracked, eager_inputs, graph_launches = {}, {}, {}
+    for name, (core, run) in cores.items():
+        core.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        carry, poses, outs_full = carry0, [], []
+        for i in range(1, N_FRAMES):
+            if i <= 3:
+                eager_inputs.setdefault(name, []).append(carry)
+            carry, out, pose = run(core, carry, i)
+            poses.append(pose)
+            if i <= 3:
+                outs_full.append(out)
+        torch.cuda.synchronize()  # the one pull: everything above was queued without a sync
+        launches = core.launches()
+        graph_launches[name] = launches["CELL_LAUNCHES"]
         _check(
-            n_inl > MIN_INLIERS and pos < MAX_POS_ERR_M and rot < MAX_ROT_ERR_DEG,
-            f"frame {i}: {n_inl} inliers, {pos:.4f} m, {rot:.3f} deg",
+            core.replays == N_FRAMES - 1 and launches == {"LAUNCHES": 0, "CELL_LAUNCHES": N_FRAMES - 1}
+            and fast_cuda.LAUNCHES == 0 and fast_cuda.CELL_LAUNCHES == 0,
+            f"{name}: {core.replays} replays made {launches} launches through the graph and "
+            f"{fast_cuda.CELL_LAUNCHES} + {fast_cuda.LAUNCHES} through the eager wrappers; expected "
+            f"one fused launch a frame inside the graph and nothing else",
         )
-    print(f"tracked {N_FRAMES - 1} frames: fused FAST + cell-argmax launches {cell_launches} "
-          f"(1 per frame), single-image FAST launches 0")
+        for i, (r_cw, t_cw, n_inl) in enumerate(poses, start=1):
+            _check(r_cw.shape == (3, 3) and t_cw.shape == (3,), f"{name} frame {i}: pose shapes")
+            _check(bool(torch.isfinite(r_cw).all() and torch.isfinite(t_cw).all()),
+                   f"{name} frame {i}: pose not finite")
+            n_inl = int(n_inl)
+            pos, rot = _pose_errors(r_cw, t_cw, r_wc[i], c_w[i])
+            print(f"{name} frame {i:2d}: inliers {n_inl:3d}  pose error {pos * 100:.2f} cm {rot:.3f} deg")
+            _check(
+                n_inl > MIN_INLIERS and pos < MAX_POS_ERR_M and rot < MAX_ROT_ERR_DEG,
+                f"{name} frame {i}: {n_inl} inliers, {pos:.4f} m, {rot:.3f} deg",
+            )
+        print(f"{name}: tracked {N_FRAMES - 1} frames as one CUDA graph a frame: fused FAST + cell-argmax "
+              f"launches {graph_launches[name]} (1 captured x {core.replays} replays), single-image FAST launches 0")
+        tracked[name] = (poses, outs_full)
+    outs = tracked["tracking step (LM 2x4)"][0]  # per frame (r_cw, t_cw, inlier count)
+    cell_launches = sum(graph_launches.values())
+
+    # replay against eager: the graph's outputs on frames 1-3 against the
+    # eager function's on the same inputs (the same kernels in the same
+    # order, so equal; a difference above 1e-6 fails)
+    for name, (core, run) in cores.items():
+        worst = 0.0
+        for j, c_in in enumerate(eager_inputs[name]):
+            _, want, _ = run(core.eager, c_in, j + 1)
+            got = tracked[name][1][j]
+            torch.cuda.synchronize()
+            for a, b in zip(_leaves(got), _leaves(want)):
+                _check(a.shape == b.shape and a.dtype == b.dtype, f"{name}: replay and eager outputs differ in shape")
+                if not torch.equal(a, b):
+                    worst = max(worst, float((a.double() - b.double()).abs().max()))
+        print(f"{name}: graph replay vs eager on frames 1-3: "
+              + ("torch.equal on every output" if worst == 0.0 else f"largest difference {worst:.3e}"))
+        _check(worst <= 1e-6, f"{name}: graph replay differs from eager by {worst:.3e}")
+    _check(fast_cuda.CELL_LAUNCHES == 3 * 3 and fast_cuda.LAUNCHES == 0,
+           f"9 eager core calls made {fast_cuda.CELL_LAUNCHES} fused launches through the wrapper")
+
+    # host syncs: 0 in a replay of each core (argument copies included), so a
+    # core can be queued frame after frame; 0 in the eager pipeline core too
+    for name, (core, run) in cores.items():
+        syncs = _count_syncs(lambda: run(core, carry0, 1))
+        print(f"{name}: host syncs in one graph replay: {len(syncs)}")
+        for m in sorted(set(syncs)):
+            print(f"  sync: {m}")
+        _check(not syncs, f"{name}: a replay must not sync with the host")
+    syncs = _count_syncs(lambda: run_pipeline(pipeline.eager, carry0, 1))
+    print(f"pipeline core, eager: host syncs in one call: {len(syncs)}")
+    _check(not syncs, f"the eager pipeline core (retry included) must not sync: {sorted(set(syncs))}")
+
+    # the 15 px -> 30 px retry: a prediction yawed by 0.05 rad moves every
+    # projection ~22 px, so 15 px finds fewer than 20 matches and 30 px
+    # rescues the frame; the true prediction is served by 15 px. Either way
+    # the core's selection equals a separate match at the radius the rule picks.
+    yaw = 0.05
+    r_yaw = torch.tensor([[np.cos(yaw), 0.0, np.sin(yaw)], [0.0, 1.0, 0.0], [-np.sin(yaw), 0.0, np.cos(yaw)]],
+                         dtype=torch.float32, device=dev)
+    r_pred1, t_pred1 = predict(carry0)
+    for label, r_p, t_p, want_wide in (("displaced prediction", r_yaw @ r_pred1, r_yaw @ t_pred1, True),
+                                       ("true prediction", r_pred1, t_pred1, False)):
+        out = pipeline(frames[1], r_p, t_p, *dmap)
+        feats_o, xy_o, fdesc_o, pf_o, nmatch_o, vis_o = out[0], out[1], out[2], out[3], out[8], out[7]
+        narrow, wide = (
+            match_by_projection(*dmap, r_p, t_p, xy_o, fdesc_o, feats_o.valid, cam, radius)
+            for radius in (15.0, 30.0)
+        )
+        picked = wide if int(narrow[2]) < 20 else narrow
+        print(f"retry, {label}: 15 px {int(narrow[2])} matches, 30 px {int(wide[2])}; the core reports "
+              f"{int(nmatch_o)}, {int(out[6].sum())} inliers")
+        _check((int(narrow[2]) < 20) == want_wide and int(wide[2]) >= 20,
+               f"retry, {label}: 15 px gave {int(narrow[2])} matches, 30 px {int(wide[2])}")
+        _check(torch.equal(pf_o, picked[0]) and int(nmatch_o) == int(picked[2]) and torch.equal(vis_o, picked[3]),
+               f"retry, {label}: the core's selection is not the match at the radius the rule picks")
+        _check(int(out[6].sum()) > MIN_INLIERS, f"retry, {label}: {int(out[6].sum())} inliers")
+
+    # A capture while another thread works on the card, as a mapping thread
+    # does beside the tracker: on a stream of its own it allocates tensors of
+    # ever new sizes and launches the fused kernel eagerly until the capture
+    # is done. The capture must succeed and hold its own launch and no other,
+    # and every launch of the thread must arrive in the wrapper's counter.
+    busy_core = GraphedFunction(extractor._extract)
+    # drawn here: the card's default random generator belongs to a capture
+    # while it runs, and a draw from another thread raises in that thread
+    noise = torch.rand(64 + 16 * 27, 752, device=dev) * 255
+    stop, made, thread_errors = threading.Event(), [0], []
+
+    def mapping_thread():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+                while not stop.is_set():
+                    rows = 64 + 16 * (made[0] % 27)
+                    image = noise[:rows] + float(made[0] % 5)
+                    fast_cells_pyramid(build_pyramid(image, 3, extractor.scale_factor), extractor.cell, EDGE_MARGIN)
+                    made[0] += 1
+                torch.cuda.current_stream(dev).synchronize()
+        except Exception as exc:  # re-raised below, on the main thread
+            thread_errors.append(exc)
+
+    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+    worker = threading.Thread(target=mapping_thread)
+    worker.start()
+    while made[0] < 3 and worker.is_alive():
+        time.sleep(0.001)
+    made_before = made[0]
+    feats_busy = busy_core(frames[1])
+    made_during = made[0] - made_before
+    stop.set()
+    worker.join()
+    torch.cuda.synchronize()
+    if thread_errors:
+        raise thread_errors[0]
+    own = fast_cuda.CELL_LAUNCHES - made[0]  # the capturing thread's eager launches: its warm-up calls
+    print(f"capture beside a busy thread: the thread made {made[0]} eager fused launches, {made_during} of them "
+          f"during warm-up + capture + replay; the capture holds {busy_core.captured()}, the wrapper counted "
+          f"{fast_cuda.CELL_LAUNCHES} = {made[0]} + {own} warm-up calls")
+    _check(made_during > 0, "the second thread made no launch while the graph was captured")
+    _check(busy_core.captured() == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1}] and busy_core.replays == 1,
+           f"a capture beside a busy thread must hold its own launch alone, got {busy_core.captured()}")
+    _check(own == WARMUP_CALLS and fast_cuda.LAUNCHES == 0,
+           f"launch counts beside a capture: {fast_cuda.CELL_LAUNCHES} counted, {made[0]} made by the thread")
+    for field, a, b in zip(feats_busy._fields, feats_busy, extractor._extract(frames[1])):
+        _check(torch.equal(a, b), f"capture beside a busy thread: FrameFeatures.{field} differs from eager")
 
     # frame 1's features through the kernel against the plain halves, both
     # on the card: every field identical
@@ -321,28 +574,104 @@ def main() -> int:
     cpu_carry = type(carry0)(*[x.to(cpu) for x in carry0])
     for i in range(1, 4):
         cpu_carry, cpu_out = step(cpu_carry, frames[i].to(cpu), cpu_dmap)
-        d_t = float((cpu_out.t_cw - outs[i - 1].t_cw.cpu()).abs().max())
-        d_r = float((cpu_out.r_cw - outs[i - 1].r_cw.cpu()).abs().max())
-        n_cpu, n_gpu = int(cpu_out.n_inliers), int(outs[i - 1].n_inliers)
+        d_t = float((cpu_out.t_cw - outs[i - 1][1].cpu()).abs().max())
+        d_r = float((cpu_out.r_cw - outs[i - 1][0].cpu()).abs().max())
+        n_cpu, n_gpu = int(cpu_out.n_inliers), int(outs[i - 1][2])
         print(f"frame {i}: card vs CPU path |dt| {d_t:.2e} m |dR| {d_r:.2e} inliers {n_gpu}/{n_cpu}")
         _check(d_t <= 1e-3 and d_r <= 1e-3 and abs(n_cpu - n_gpu) <= 0.05 * n_cpu,
                f"frame {i}: card and CPU path disagree")
 
-    # host syncs inside one step (0 means the step can be queued frame
-    # after frame)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        step(carry0, frames[1], dmap)
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
-    print(f"host syncs inside one step: {len(syncs)}")
-    for s in sorted(set(syncs)):
-        print(f"  sync: {s}")
+    cpu_out = pipeline(frames[1].to(cpu), *[x.to(cpu) for x in predict(carry0)], *cpu_dmap)
+    gpu_r, gpu_t, gpu_n = tracked["pipeline core (LM 4x10)"][0][0]
+    d_t = float((cpu_out[5] - gpu_t.cpu()).abs().max())
+    d_r = float((cpu_out[4] - gpu_r.cpu()).abs().max())
+    n_cpu, n_gpu = int(cpu_out[6].sum()), int(gpu_n)
+    print(f"pipeline core frame 1: card vs CPU path |dt| {d_t:.2e} m |dR| {d_r:.2e} inliers {n_gpu}/{n_cpu}")
+    _check(d_t <= 1e-3 and d_r <= 1e-3 and abs(n_cpu - n_gpu) <= 0.05 * n_cpu,
+           "pipeline core frame 1: card and CPU path disagree")
 
-    # ---- 5. times --------------------------------------------------------
+    # ---- 5. the mapping functions, card against the port's CPU path ------
+    # two-view initialization on descriptor matches between frames 0 and 8
+    feats_a, feats_b = extractor._extract(frames[0]), extractor._extract(frames[INIT_FRAME])
+    xy_a, xy_b = undistort_points(cam, feats_a.xy), undistort_points(cam, feats_b.xy)
+    res = match_with_mask(
+        hamming_matrix(feats_a.descriptors_pm1(), feats_b.descriptors_pm1()),
+        valid_gate(feats_a.valid, feats_b.valid), max_dist=50.0, ratio=0.8, mutual=True,
+    )
+    tv_valid = res.idx >= 0
+    tv_x1, tv_x2 = xy_a, xy_b[res.idx.clamp(min=0)]
+    r_a, t_a = r_wc[0].T, -r_wc[0].T @ c_w[0]
+    r_b, t_b = r_wc[INIT_FRAME].T, -r_wc[INIT_FRAME].T @ c_w[INIT_FRAME]
+    r_rel = r_b @ r_a.T
+    t_rel = t_b - r_rel @ t_a
+    t_rel = t_rel / np.linalg.norm(t_rel)
+
+    def init_errors(result):
+        r = result.r_cw2.double().cpu().numpy()
+        rot = np.degrees(np.linalg.norm(r @ r_rel.T.astype(np.float64) - np.eye(3)) / np.sqrt(2))
+        direction = np.degrees(np.arccos(np.clip(result.t_cw2.double().cpu().numpy() @ t_rel, -1.0, 1.0)))
+        return float(rot), float(direction)
+
+    tv_gen = torch.Generator(device=dev).manual_seed(0)
+    init = two_view_init(tv_x1, tv_x2, tv_valid, cam, tv_gen)
+    rot, direction = init_errors(init)
+    print(f"two_view_init, frames 0 and {INIT_FRAME}, {int(tv_valid.sum())} matches, 256 hypotheses: "
+          f"success {bool(init.success)}, used_h {bool(init.used_h)}, {int(init.is_inlier.sum())} inliers, "
+          f"rotation {rot:.3f} deg and translation direction {direction:.2f} deg off the ground truth")
+    _check(init.r_cw2.is_cuda and bool(init.success) and int(init.is_inlier.sum()) > 100 and rot < 1.0
+           and direction < 10.0, "two_view_init on the card: wrong outcome")
+    # the same minimal sets through the card and the CPU path
+    idx_h, idx_f = sample_minimal_sets(tv_valid, 256, torch.Generator(device=dev).manual_seed(1))
+    on_card = two_view_from_samples(tv_x1, tv_x2, tv_valid, cam, idx_h, idx_f)
+    on_cpu = two_view_from_samples(tv_x1.cpu(), tv_x2.cpu(), tv_valid.cpu(), cam, idx_h.cpu(), idx_f.cpu())
+    d_r = float((on_card.r_cw2.cpu() - on_cpu.r_cw2).abs().max())
+    d_t = float((on_card.t_cw2.cpu() - on_cpu.t_cw2).abs().max())
+    overlap = int((on_card.is_inlier.cpu() & on_cpu.is_inlier).sum()) / max(int(on_cpu.is_inlier.sum()), 1)
+    print(f"two_view_from_samples, same 256 + 256 minimal sets: card vs CPU path |dR| {d_r:.2e} |dt| {d_t:.2e}, "
+          f"inlier overlap {overlap:.3f}, used_h {bool(on_card.used_h)}/{bool(on_cpu.used_h)}")
+    _check(bool(on_card.success) and bool(on_cpu.success) and bool(on_card.used_h) == bool(on_cpu.used_h)
+           and d_r <= 5e-3 and d_t <= 5e-2 and overlap >= 0.95, "two_view_from_samples: card and CPU path disagree")
+
+    # triangulation between the two frames at their true poses
+    sigma2_levels = torch.from_numpy(extractor.level_sigma2()).to(dev)
+    tri_args = (
+        torch.from_numpy(r_a).to(dev), torch.from_numpy(t_a).to(dev), xy_a, feats_a.level, feats_a.desc01, feats_a.valid,
+        torch.from_numpy(r_b).to(dev), torch.from_numpy(t_b).to(dev), xy_b, feats_b.level, feats_b.desc01, feats_b.valid,
+    )
+    tri_idx, tri_x, tri_good = triangulate_between(*tri_args, cam, sigma2_levels)
+    cpu_idx, cpu_x, cpu_good = triangulate_between(*[a.cpu() for a in tri_args], cam, sigma2_levels.cpu())
+    both = tri_good.cpu() & cpu_good
+    idx_same = float((tri_idx.cpu() == cpu_idx).float().mean())
+    good_same = float((tri_good.cpu() == cpu_good).float().mean())
+    d_x = float(((tri_x.cpu() - cpu_x)[both].abs() / cpu_x[both].abs().clamp(min=1.0)).max())
+    print(f"triangulate_between, {extractor.capacity} x {extractor.capacity} features: {int((tri_idx >= 0).sum())} "
+          f"matches, {int(tri_good.sum())} accepted; card vs CPU path: matches equal on {idx_same:.4f}, "
+          f"acceptance on {good_same:.4f}, points within {d_x:.2e} (relative)")
+    _check(int(tri_good.sum()) > 100 and idx_same >= 0.995 and good_same >= 0.99 and d_x <= 1e-3,
+           "triangulate_between: card and CPU path disagree")
+
+    # local bundle adjustment
+    ba_obs_np, ba_state_np = _ba_problem()
+    ba_obs, ba_state = ba_observations_from_numpy(**ba_obs_np), vision_ba_state_from_numpy(**ba_state_np)
+    ba_fixed = torch.zeros(BA_K, dtype=torch.bool, device=dev)
+    ba_fixed[:2] = True  # two fixed keyframes pin the gauge, scale included
+    cost_before = float(_vision_cost_and_chi2(ba_state, ba_obs, cam, CHI2_MONO_2DOF)[0])
+    ba_syncs = _count_syncs(lambda: vision_ba(ba_state, ba_obs, cam, ba_fixed, iters=BA_ITERS))
+    ba_out, _ = vision_ba(ba_state, ba_obs, cam, ba_fixed, iters=BA_ITERS)
+    cost_after = float(_vision_cost_and_chi2(ba_out, ba_obs, cam, CHI2_MONO_2DOF)[0])
+    cpu_ba_out, _ = vision_ba(
+        type(ba_state)(*[x.cpu() for x in ba_state]), type(ba_obs)(*[x.cpu() for x in ba_obs[:4]]), cam,
+        ba_fixed.cpu(), iters=BA_ITERS,
+    )
+    d_r = float((ba_out.r_cw.cpu() - cpu_ba_out.r_cw).abs().max())
+    d_t = float((ba_out.t_cw.cpu() - cpu_ba_out.t_cw).abs().max())
+    print(f"vision_ba, K={BA_K} M={BA_M} R={BA_R}, {BA_ITERS} iterations: cost {cost_before:.1f} -> {cost_after:.1f}, "
+          f"host syncs {len(ba_syncs)}; card vs CPU path |dR| {d_r:.2e} |dt| {d_t:.2e}")
+    _check(ba_out.points.is_cuda and cost_after < 0.1 * cost_before, "vision_ba: the cost did not fall")
+    _check(not ba_syncs, f"vision_ba must not sync with the host: {sorted(set(ba_syncs))}")
+    _check(d_r <= 1e-3 and d_t <= 1e-3, "vision_ba: card and CPU path disagree")
+
+    # ---- 6. times --------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -404,6 +733,7 @@ def main() -> int:
         obs = PoseObs(dmap.xyz[pf.clamp(min=0)], xy, 1.0 / sigma2[feats.level], pf >= 0)
         stage_in.append((i, r_pred, t_pred, feats, xy, desc, obs))
         c, _ = step(c, frames[i], dmap)
+    torch.cuda.synchronize()
 
     def extract_all():
         for i, *_ in stage_in:
@@ -423,69 +753,82 @@ def main() -> int:
     n = len(stage_in)
     stages = {}
     for name, fn in (("extract", extract_all), ("match", match_all), ("pose_lm", lm_all)):
-        runs = [_event_ms(fn, reps=1, warmup=1 if not stages else 0) / n for _ in range(5)]
+        runs = [_event_ms(fn, reps=1, warmup=1 if not stages else 0) / n for _ in range(3)]
         stages[name] = statistics.median(runs)
-        print(f"{tag} {name}: {stages[name]:.3f} ms/frame (median of 5 passes over {n} frames)")
+        print(f"{tag} {name}, eager: {stages[name]:.3f} ms/frame (median of 3 passes over {n} frames)")
 
-    # the whole step, replayed as bench.py replays it: frames 1..15 in
-    # order, the carry reset at each cycle, one sync at the end
+    # Each core over the benchmark's replay: frames 1..15 in order, the
+    # carry reset at each cycle, one sync at the end; eager and as a graph.
     order = list(range(1, N_FRAMES))
     frame_ids = [order[j % len(order)] for j in range(REPLAY_FRAMES)]
 
-    def replay():
+    def replay(fn, run, ids):
         c, last = carry0, None
-        for j, i in enumerate(frame_ids):
+        for j, i in enumerate(ids):
             if j % len(order) == 0:
                 c = carry0
-            c, last = step(c, frames[i], dmap)
+            c, _, last = run(fn, c, i)
         return last
 
-    replay()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t_host = time.perf_counter()
-    start.record()
-    last = replay()
-    end.record()
-    n_last = int(last.n_inliers)  # the pull fences the whole chain
-    wall_s = time.perf_counter() - t_host
-    step_ms = start.elapsed_time(end) / REPLAY_FRAMES
-    _check(n_last > MIN_INLIERS, f"replay ended with {n_last} inliers")
-    print(f"{tag} tracking step: {step_ms:.3f} ms/frame (CUDA events), "
-          f"{REPLAY_FRAMES / wall_s:.1f} fps (host clock, {REPLAY_FRAMES} frames)")
-
-    # device busy share over one 15-frame cycle, and where the device time goes
     from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_host = time.perf_counter()
-        c = carry0
-        for i in order:
-            c, _ = step(c, frames[i], dmap)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t_host) * 1e6
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
-    # kernels only: the operators that launch them carry the same time
-    device_ops = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-    ]
+    core_times = {}
+    for name, (core, run) in cores.items():
+        times = {}
+        # eagerly a 4x10 core takes over 100 ms of host time a frame: two
+        # cycles of the arc are enough for a time that moves x2 between runs
+        for label, fn, ids in (("eager", core.eager, frame_ids[:EAGER_REPLAY_FRAMES]), ("graph", core, frame_ids)):
+            replay(fn, run, order)  # warm-up: one cycle
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t_host = time.perf_counter()
+            start.record()
+            last = replay(fn, run, ids)
+            end.record()
+            n_last = int(last[2])  # the pull fences the whole chain
+            wall_s = time.perf_counter() - t_host
+            times[label] = start.elapsed_time(end) / len(ids)
+            _check(n_last > MIN_INLIERS, f"{name}, {label}: replay ended with {n_last} inliers")
+            print(f"{tag} {name}, {label}: {times[label]:.3f} ms/frame (CUDA events), "
+                  f"{len(ids) / wall_s:.1f} fps (host clock, {len(ids)} frames)")
+        core_times[name] = times
 
-    busy_us = sum(dev_us(e) for e in device_ops)
-    if busy_us > 0:
-        print(f"{tag} device busy {busy_us / window_us * 100:.1f} % of a {len(order)}-frame window "
-              f"({busy_us / len(order) / 1e3:.3f} ms device time/frame, profiler on)")
-        for e in sorted(device_ops, key=dev_us, reverse=True)[:10]:
-            print(f"  {dev_us(e) / len(order):9.1f} us/frame  x{e.count / len(order):6.1f}  {e.key[:100]}")
-        n_kernels = sum(e.count for e in device_ops) / len(order)
-        print(f"{tag} kernels launched per frame: {n_kernels:.0f}")
-    else:
-        print(f"{tag} device busy share: not measured (profiler recorded no device time)")
+        # device busy share over one 15-frame cycle of the graphed core, and
+        # where the device time goes
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_host = time.perf_counter()
+            replay(core, run, order)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t_host) * 1e6
+        # kernels only: the operators that launch them carry the same time
+        device_ops = [
+            e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+        ]
+        busy_us = sum(dev_us(e) for e in device_ops)
+        if busy_us > 0:
+            print(f"{tag} {name}, graph: device busy {busy_us / window_us * 100:.1f} % of a {len(order)}-frame "
+                  f"window ({busy_us / len(order) / 1e3:.3f} ms device time/frame, profiler on), "
+                  f"{sum(e.count for e in device_ops) / len(order):.0f} kernels and copies a frame")
+            for e in sorted(device_ops, key=dev_us, reverse=True)[:6]:
+                print(f"  {dev_us(e) / len(order):9.1f} us/frame  x{e.count / len(order):6.1f}  {e.key[:100]}")
+        else:
+            print(f"{tag} {name}, graph: device busy share and kernels a frame: not measured "
+                  f"(the profiler recorded no device time)")
+
+    # the mapping functions, eagerly, as local mapping calls them
+    ba_ms = _event_ms(lambda: vision_ba(ba_state, ba_obs, cam, ba_fixed, iters=BA_ITERS), reps=5, warmup=1) / BA_ITERS
+    tri_ms = _event_ms(lambda: triangulate_between(*tri_args, cam, sigma2_levels), reps=20)
+    init_ms = _event_ms(lambda: two_view_init(tv_x1, tv_x2, tv_valid, cam, tv_gen), reps=10)
+    print(f"{tag} vision_ba K={BA_K} M={BA_M} R={BA_R}: {ba_ms:.3f} ms per LM iteration "
+          f"({1e3 / ba_ms:.0f} iterations/s; 5 solves of {BA_ITERS} iterations)")
+    print(f"{tag} triangulate_between, {extractor.capacity} x {extractor.capacity} features: {tri_ms:.3f} ms a call")
+    print(f"{tag} two_view_init, {tv_x1.shape[0]} match slots, 256 hypotheses: {init_ms:.3f} ms a call")
 
     print(json.dumps({"kernels": [
         {
@@ -507,7 +850,8 @@ def main() -> int:
             "route": "cuda",
             "source": "viorb_tpu_torch/csrc/fast_score.cu",
             "replaces": "viorb_tpu/features/fast_pallas.py:30, viorb_tpu/features/fast.py:79",
-            "path": f"make_tracking_step over {N_FRAMES - 1} frames",
+            "path": f"make_tracking_step, make_pipeline_track_core and make_streaming_track_core, each one "
+                    f"CUDA graph a frame, over {N_FRAMES - 1} frames each (launches in the capture x replays)",
             "launches": cell_launches,
             "max_abs_err": cells_err,
             "ms": fused_ms,

@@ -31,9 +31,13 @@ def render_scene(n_frames):
     return cam, r_wc, c_w, rooms, planes, frames
 
 
-def reference_map(r_wc0, c_w0, frame0):
-    """The reference's DeviceMap fields as numpy (desc_pm1 as f32)."""
-    feats = RefExtractor(n_features=N_FEATURES).extract(frame0.numpy())
+def reference_map(r_wc0, c_w0, frame0, feats=None):
+    """The reference's DeviceMap fields as numpy (desc_pm1 as f32). `feats`:
+    the reference's features of frame 0, where the caller has them already
+    (a tracking core returns them) and need not compile the extractor on
+    its own."""
+    if feats is None:
+        feats = RefExtractor(n_features=N_FEATURES).extract(frame0.numpy())
     xy = np.asarray(ref_undistort(REF_CAM, feats.xy))
     depth = ref_synthetic.depth_at(REF_CAM, r_wc0, c_w0, ref_synthetic.default_room(0), xy)
     ok = np.asarray(feats.valid) & np.isfinite(depth)

@@ -78,6 +78,15 @@ class OrbExtractor:
         self.capacity = int(sum(self.level_quota))
         self.scales = [scale_factor**l for l in range(n_levels)]
 
+    def config_key(self) -> tuple:
+        """Extraction is pure configuration: two extractors with the same
+        key compute the same function, so the tracking cores built for one
+        (and their captured CUDA graphs) serve the other."""
+        return (
+            self.n_features, self.n_levels, self.scale_factor,
+            self.fast_threshold, self.fast_min_threshold, self.cell,
+        )
+
     def level_sigma2(self) -> np.ndarray:
         return np.array([s * s for s in self.scales], np.float32)
 

@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 
+from viorb_tpu_torch import launch_counts
 from viorb_tpu_torch.cuda_build import load_library
 from viorb_tpu_torch.features.fast import cell_offsets
 
@@ -35,9 +36,12 @@ KERNEL_MIN_BORDER = 3
 
 # Kernel launches made through fast_score_map_cuda (LAUNCHES) and through
 # fast_cells_cuda (CELL_LAUNCHES). A run that sets them to 0 before driving
-# the tracking step reads back how often each entry was launched.
+# the tracking step reads back how often each entry was launched. A launch
+# recorded into a CUDA graph is counted by the graph, not here
+# (`launch_counts`, `cuda_graph`).
 LAUNCHES = 0
 CELL_LAUNCHES = 0
+launch_counts.register(__name__, "LAUNCHES", "CELL_LAUNCHES")
 
 _fns: dict = {}
 
@@ -66,7 +70,6 @@ def _check_image(image: torch.Tensor, who: str) -> None:
 def fast_score_map_cuda(image: torch.Tensor) -> torch.Tensor:
     """(H,W) f32 CUDA tensor -> (H,W) f32 FAST arc-strength map, 3 px
     border zeroed. Launches on PyTorch's current stream."""
-    global LAUNCHES
     _check_image(image, "fast_score_map_cuda")
     h, w = image.shape
     out = torch.empty_like(image)
@@ -80,7 +83,7 @@ def fast_score_map_cuda(image: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"fast_score kernel launch failed: cudaError {rc}")
     if h > 0 and w > 0:
-        LAUNCHES += 1
+        launch_counts.count("LAUNCHES")
     return out
 
 
@@ -88,7 +91,6 @@ def fast_cells_cuda(pyramid: Sequence[torch.Tensor], cell: int = 16, border: int
     """All levels of a pyramid of (H_l, W_l) f32 CUDA tensors, in one
     launch on PyTorch's current stream -> (cell_best f32, cell_arg int64,
     offsets) as `features/fast.py::fast_cells_pyramid` describes them."""
-    global CELL_LAUNCHES
     n = len(pyramid)
     if not 1 <= n <= KERNEL_MAX_LEVELS:
         raise ValueError(f"fast_cells_cuda takes 1..{KERNEL_MAX_LEVELS} levels, got {n}")
@@ -123,5 +125,5 @@ def fast_cells_cuda(pyramid: Sequence[torch.Tensor], cell: int = 16, border: int
         rc = fn(ptrs, hs, ws, offs, n, border, cell_best.data_ptr(), cell_arg.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fast_cells kernel launch failed: cudaError {rc}")
-    CELL_LAUNCHES += 1
+    launch_counts.count("CELL_LAUNCHES")
     return cell_best, cell_arg, offsets

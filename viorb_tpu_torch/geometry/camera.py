@@ -26,6 +26,15 @@ class PinholeCamera(NamedTuple):
     height: int = 480
 
 
+def camera_matrix(cam: PinholeCamera, device, dtype=torch.float32) -> torch.Tensor:
+    """The 3x3 intrinsic matrix K as a tensor on `device` (the reference's
+    `cam.K`). Built from Python numbers: a host-to-device copy, so not for
+    a per-frame path."""
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=dtype, device=device
+    )
+
+
 def has_distortion(cam: PinholeCamera) -> bool:
     """False for an ideal pinhole. Its distortion is then the identity,
     exactly (x * 1 + 0 in f32), so the maps below skip the arithmetic:

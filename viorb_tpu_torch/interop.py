@@ -1,7 +1,8 @@
 """Carry state into the port from numpy.
 
-The tracking step has no weights: its state is the local map, the carry,
-the camera and the extractor configuration. These builders take that
+The system has no weights: its state is the local map, the carry, the
+camera, the extractor configuration and, for bundle adjustment, the
+keyframe poses, landmarks and observation grid. These functions take that
 state as plain numpy arrays and numbers — for instance the JAX package's
 arrays after `np.asarray` — so the port can start from exactly the state
 another implementation holds. `device=None` puts the state on the card
@@ -18,11 +19,14 @@ import torch
 from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import FrameFeatures
 from viorb_tpu_torch.geometry.camera import PinholeCamera
+from viorb_tpu_torch.optim.ba import BAObservations, VisionBAState
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap, TrackCarry
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32), device=device)
+    # C order whatever the array's: a transposed view (r_wc.T) would
+    # otherwise arrive as a column-major tensor
+    return torch.tensor(np.ascontiguousarray(x, np.float32), device=device)
 
 
 def _bool(x, device) -> torch.Tensor:
@@ -77,3 +81,33 @@ def features_from_numpy(
         desc01=torch.tensor(np.asarray(desc01, np.uint8), device=device),
         valid=_bool(valid, device),
     )
+
+
+def local_map_upload_from_numpy(packed, desc_bits, valid, device=None):
+    """The packed local-map upload, `slam/kernels.py::unpack_local_map`'s
+    arguments: packed (M,8) f32 xyz | normal | dmin | dmax, desc_bits (M,32)
+    uint8 packed descriptor bits (numpy packbits, bitorder='little'),
+    valid (M,) bool."""
+    device = resolve_device(device)
+    return (
+        _f32(packed, device),
+        torch.tensor(np.asarray(desc_bits, np.uint8), device=device),
+        _bool(valid, device),
+    )
+
+
+def ba_observations_from_numpy(kf_idx, uv, inv_sigma2, valid, device=None) -> BAObservations:
+    """The landmark-major (M,R) observation grid of a monocular bundle
+    adjustment."""
+    device = resolve_device(device)
+    return BAObservations(
+        kf_idx=_i64(kf_idx, device),
+        uv=_f32(uv, device),
+        inv_sigma2=_f32(inv_sigma2, device),
+        valid=_bool(valid, device),
+    )
+
+
+def vision_ba_state_from_numpy(r_cw, t_cw, points, device=None) -> VisionBAState:
+    device = resolve_device(device)
+    return VisionBAState(_f32(r_cw, device), _f32(t_cw, device), _f32(points, device))

@@ -47,6 +47,16 @@ def _residual(r_cw, t_cw, obs: PoseObs, cam: PinholeCamera) -> torch.Tensor:
     return project(cam, obs.points @ r_cw.T + t_cw) - obs.uv
 
 
+def _damped_step(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """dx of the LM's damped 6x6 normal system (H + lam diag(H)) dx = g.
+    `solve_ex` leaves its error flag on the device; `torch.linalg.solve`
+    would read it back, a host sync on every iteration (and a refusal
+    inside a CUDA graph capture)."""
+    H = H + lam * torch.diag(torch.diagonal(H).clamp(min=1e-6))
+    H.diagonal().add_(1e-8)  # in place on the damped copy: H + 1e-8 I
+    return torch.linalg.solve_ex(H, g)[0]
+
+
 def pose_optimization_tcw(
     r_cw: torch.Tensor,
     t_cw: torch.Tensor,
@@ -58,7 +68,6 @@ def pose_optimization_tcw(
     """Returns (r_cw, t_cw, inlier_mask): `rounds` x `iters_per_round` LM
     iterations with chi2 5.991 re-gating between rounds."""
     dev, dt = r_cw.device, r_cw.dtype
-    eye6 = torch.eye(6, dtype=dt, device=dev)
     inlier = torch.ones(obs.points.shape[0], dtype=torch.bool, device=dev)
     for _ in range(rounds):
         lam = torch.full((), 1e-4, dtype=dt, device=dev)
@@ -70,10 +79,7 @@ def pose_optimization_tcw(
             Jw = J * w[:, None, None]
             H = torch.einsum("nci,ncj->ij", Jw, J)
             g = -torch.einsum("nci,nc->i", Jw, r)
-            H = H + lam * torch.diag(torch.diagonal(H).clamp(min=1e-6))
-            # solve_ex leaves its error flag on the device; torch.linalg.solve
-            # would read it back, a host sync on every iteration
-            dx = torch.linalg.solve_ex(H + 1e-8 * eye6, g)[0]
+            dx = _damped_step(H, g, lam)
             dR = exp_so3(dx[3:6])
             r_new = dR @ r_cw
             t_new = dR @ t_cw + dx[:3]

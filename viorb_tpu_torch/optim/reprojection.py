@@ -43,9 +43,31 @@ def reproj_residual_jacobian_tcw(
     """Residual (N,2) and its Jacobian (N,2,6) w.r.t. (rho, phi) at
     delta = 0."""
     pc = p_w @ r_cw.T + t_cw
-    r = project(cam, pc) - uv
+    return project(cam, pc) - uv, _pose_jacobian(cam, pc)[1]
+
+
+def _pose_jacobian(cam: PinholeCamera, pc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """At camera-frame points pc (...,3): d project / d pc (...,2,3) and its
+    chain through d pc / d (rho, phi) = [I, -[pc]x] (...,2,6)."""
     d_pc = torch.cat(
-        [torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[0], 3, 3), -hat(pc)],
+        [torch.eye(3, dtype=pc.dtype, device=pc.device).expand(*pc.shape[:-1], 3, 3), -hat(pc)],
         dim=-1,
-    )  # (N,3,6)
-    return r, project_jacobian(cam, pc) @ d_pc
+    )  # (...,3,6)
+    J_proj = project_jacobian(cam, pc)
+    return J_proj, J_proj @ d_pc
+
+
+def reproj_residual_jacobians_ba(
+    r_cw: torch.Tensor,  # (...,3,3) pose of each observation's keyframe
+    t_cw: torch.Tensor,  # (...,3)
+    p_w: torch.Tensor,  # (...,3) landmark of each observation
+    uv: torch.Tensor,  # (...,2)
+    cam: PinholeCamera,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bundle adjustment's form of `reproj_residual_tcw`, one pose and
+    one landmark per observation: the residual (...,2) and its Jacobians at
+    zero increment, w.r.t. the pose's (rho, phi) (...,2,6) and w.r.t. the
+    landmark (...,2,3) (d pc / d p_w = R)."""
+    pc = (r_cw @ p_w[..., None])[..., 0] + t_cw
+    J_proj, J_pose = _pose_jacobian(cam, pc)
+    return project(cam, pc) - uv, J_pose, J_proj @ r_cw

@@ -1,11 +1,21 @@
-"""Device-resident tracking step (port of viorb_tpu/slam/tracking_loop.py:
-DeviceMap, TrackCarry, TrackOut, make_tracking_step, identity_carry).
+"""Device-resident tracking cores (port of viorb_tpu/slam/tracking_loop.py:
+DeviceMap, TrackCarry, TrackOut, make_tracking_step,
+make_pipeline_track_core, make_streaming_track_core, identity_carry).
 
-The whole per-frame tracking path of localization mode — extract ->
-predict -> project-match -> pose LM — with the pose and the
-constant-velocity state carried on the device. The step syncs with the
-host nowhere: it can be called frame after frame, and the caller reads
-`TrackOut` when it needs it.
+The whole per-frame tracking path — extract -> predict -> project-match
+(with the wide-radius retry) -> pose LM — with no host sync anywhere, so a
+core can be called frame after frame and the caller reads its outputs when
+it needs them.
+
+Where the reference wraps each core in `jax.jit`, the port wraps it in
+`cuda_graph.GraphedFunction`: on the card the callable a maker returns
+captures one CUDA graph per set of input shapes at its first call (after a
+warm-up that uploads the constant tables and builds the FAST kernel) and
+replays it from then on; on CPU tensors it is the eager function, which
+stays reachable as `.eager`. Outputs are clones of the graph's static
+outputs, made on the same stream after the replay: a caller may keep many
+frames' outputs, and a returned carry goes straight back in as the next
+call's input, with no host sync.
 """
 
 from __future__ import annotations
@@ -14,12 +24,13 @@ from typing import NamedTuple
 
 import torch
 
+from viorb_tpu_torch.cuda_graph import GraphedFunction
 from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
 from viorb_tpu_torch.geometry.so3 import normalize_rotation
 from viorb_tpu_torch.optim.pose_only import PoseObs, pose_optimization_tcw
-from viorb_tpu_torch.slam.kernels import match_by_projection
+from viorb_tpu_torch.slam.kernels import TRACK_RADIUS, match_by_projection, match_by_projection_retry
 
 
 class DeviceMap(NamedTuple):
@@ -46,35 +57,74 @@ class TrackOut(NamedTuple):
     n_inliers: torch.Tensor
 
 
+class _FrontEnd:
+    """extract -> undistort -> project-match -> PoseObs: the part the three
+    cores share."""
+
+    def __init__(self, cam: PinholeCamera, extractor: OrbExtractor):
+        self.cam = cam
+        self.extractor = extractor
+        self._sigma2_np = extractor.level_sigma2()
+        # per-device copy of the level variances: uploaded at first use (a
+        # graph's warm-up), never inside a capture
+        self._sigma2: dict = {}
+
+    def _level_sigma2(self, dev: torch.device) -> torch.Tensor:
+        sigma2 = self._sigma2.get(dev)
+        if sigma2 is None:
+            sigma2 = self._sigma2[dev] = torch.from_numpy(self._sigma2_np).to(dev)
+        return sigma2
+
+    def __call__(self, image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax, retry: bool):
+        """Returns (feats, xy, fdesc, pf, nmatch, visible, obs). With
+        `retry`, a 15 px search that finds fewer than 20 matches gives way
+        to a 30 px one, selected on the device."""
+        feats = self.extractor._extract(image)
+        xy = undistort_points(self.cam, feats.xy)
+        fdesc = feats.descriptors_pm1()
+        args = (xyz, desc_pm1, valid, normal, dmin, dmax, r_pred, t_pred, xy, fdesc, feats.valid, self.cam)
+        if retry:
+            pf, _res, nmatch, visible = match_by_projection_retry(*args)
+        else:
+            pf, _res, nmatch, visible = match_by_projection(*args, TRACK_RADIUS)
+        obs = PoseObs(
+            points=xyz[pf.clamp(min=0)],
+            uv=xy,
+            inv_sigma2=1.0 / self._level_sigma2(xy.device)[feats.level],
+            valid=pf >= 0,
+        )
+        return feats, xy, fdesc, pf, nmatch, visible, obs
+
+
+# Process-wide core cache: a core is a pure function of (camera, extractor
+# configuration), so SLAM instances share it, and with it the CUDA graphs it
+# has captured.
+_CORE_CACHE: dict = {}
+
+
+def _cached(key, build):
+    core = _CORE_CACHE.get(key)
+    if core is None:
+        core = _CORE_CACHE[key] = build()
+    return core
+
+
 def make_tracking_step(cam: PinholeCamera, extractor: OrbExtractor):
     """Returns step(carry, image, dmap) -> (carry, TrackOut): search radius
-    15 px, pose LM 2 rounds x 4 iterations."""
-    sigma2_np = extractor.level_sigma2()
-    sigma2_dev: dict = {}
+    15 px, pose LM 2 rounds x 4 iterations. A CUDA graph on the card."""
+    return _cached(
+        ("step", cam, extractor.config_key()), lambda: _build_tracking_step(cam, extractor)
+    )
+
+
+def _build_tracking_step(cam: PinholeCamera, extractor: OrbExtractor):
+    front = _FrontEnd(cam, extractor)
 
     def step(carry: TrackCarry, image: torch.Tensor, dmap: DeviceMap):
-        dev = carry.r_cw.device
-        sigma2 = sigma2_dev.get(str(dev))
-        if sigma2 is None:
-            sigma2 = sigma2_dev[str(dev)] = torch.from_numpy(sigma2_np).to(dev)
         # constant-velocity prediction
         r_pred = carry.vel_r @ carry.r_cw
         t_pred = (carry.vel_r @ carry.t_cw) + carry.vel_t
-
-        feats = extractor._extract(image)
-        xy = undistort_points(cam, feats.xy)
-        desc = feats.descriptors_pm1()
-
-        point_for_feat, _res, _n, _ = match_by_projection(
-            dmap.xyz, dmap.desc_pm1, dmap.valid, dmap.normal, dmap.dmin,
-            dmap.dmax, r_pred, t_pred, xy, desc, feats.valid, cam, 15.0,
-        )
-        obs = PoseObs(
-            points=dmap.xyz[point_for_feat.clamp(min=0)],
-            uv=xy,
-            inv_sigma2=1.0 / sigma2[feats.level],
-            valid=point_for_feat >= 0,
-        )
+        *_, obs = front(image, r_pred, t_pred, *dmap, retry=False)
         r_new, t_new, inlier = pose_optimization_tcw(
             r_pred, t_pred, obs, cam, rounds=2, iters_per_round=4
         )
@@ -91,7 +141,85 @@ def make_tracking_step(cam: PinholeCamera, extractor: OrbExtractor):
         new_carry = TrackCarry(r_new, t_new, vel_r, vel_t)
         return new_carry, TrackOut(r_new, t_new, inlier.sum())
 
-    return step
+    return GraphedFunction(step)
+
+
+def make_pipeline_track_core(cam: PinholeCamera, extractor: OrbExtractor):
+    """Tracking core of the full SLAM pipeline (mutable map): extraction,
+    undistortion, projection matching with the wide-radius retry, and the
+    pose-only LM at 4 rounds x 10 iterations, as one CUDA graph on the card.
+
+    core(image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax)
+    -> (feats, xy, fdesc, pf, r_new, t_new, inlier, visible, nmatch).
+
+    The map arrays arrive padded to a static capacity, so one graph serves
+    every map size of an (image, capacity) shape."""
+    return _cached(
+        ("pipeline", cam, extractor.config_key()),
+        lambda: _build_pipeline_track_core(cam, extractor),
+    )
+
+
+def _build_pipeline_track_core(cam: PinholeCamera, extractor: OrbExtractor):
+    front = _FrontEnd(cam, extractor)
+
+    def core(image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax):
+        feats, xy, fdesc, pf, nmatch, visible, obs = front(
+            image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax, retry=True
+        )
+        r_new, t_new, inlier = pose_optimization_tcw(r_pred, t_pred, obs, cam)
+        return feats, xy, fdesc, pf, r_new, t_new, inlier, visible, nmatch
+
+    return GraphedFunction(core)
+
+
+def make_streaming_track_core(cam: PinholeCamera, extractor: OrbExtractor):
+    """Carry-based tracking core for streaming: like
+    `make_pipeline_track_core`, but the constant-velocity prediction comes
+    from a `TrackCarry` on the device and the updated carry is returned as
+    device tensors, so the host can queue frame after frame without pulling
+    anything; a collector pulls the bookkeeping fields of many frames later.
+
+    core(carry, image, xyz, desc_pm1, valid, normal, dmin, dmax) ->
+    (new_carry, (feats, xy, fdesc, pf, r_new, t_new, inlier, visible, ok)).
+
+    The carry freezes on failure frames (fewer than 10 matches or inliers):
+    the pose and velocity keep the last good estimate, so one blurred frame
+    cannot poison the chain before the collector notices."""
+    return _cached(
+        ("streaming", cam, extractor.config_key()),
+        lambda: _build_streaming_track_core(cam, extractor),
+    )
+
+
+def _build_streaming_track_core(cam: PinholeCamera, extractor: OrbExtractor):
+    front = _FrontEnd(cam, extractor)
+
+    def core(carry: TrackCarry, image, xyz, desc_pm1, valid, normal, dmin, dmax):
+        r_pred = carry.vel_r @ carry.r_cw
+        t_pred = (carry.vel_r @ carry.t_cw) + carry.vel_t
+        feats, xy, fdesc, pf, nmatch, visible, obs = front(
+            image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax, retry=True
+        )
+        r_new, t_new, inlier = pose_optimization_tcw(r_pred, t_pred, obs, cam)
+        # the synchronous path's acceptance gate
+        ok = (nmatch >= 10) & (inlier.sum() >= 10)
+        # re-orthonormalize the carried rotation: the LM composes dR
+        # products frame after frame with no host resync, and the f32 drift
+        # compounds across the carry chain
+        r_new = normalize_rotation(r_new)
+        # velocity update T_new * T_old^{-1}; freeze the carry on failure
+        vel_r = r_new @ carry.r_cw.T
+        vel_t = t_new - (vel_r @ carry.t_cw)
+        new_carry = TrackCarry(
+            torch.where(ok, r_new, carry.r_cw),
+            torch.where(ok, t_new, carry.t_cw),
+            torch.where(ok, vel_r, carry.vel_r),
+            torch.where(ok, vel_t, carry.vel_t),
+        )
+        return new_carry, (feats, xy, fdesc, pf, r_new, t_new, inlier, visible, ok)
+
+    return GraphedFunction(core)
 
 
 def identity_carry(device=None) -> TrackCarry:
