@@ -99,7 +99,8 @@ def _interop_carries_reference_state(scene):
 
 def _port_imports_no_jax():
     """Every port module imports without JAX or the JAX package: the GPU
-    host has neither."""
+    host has neither. The walk reaches the map store, its checkpoints and
+    native helpers, the ATE, PnP and MonoSlam modules too."""
     code = (
         "import pkgutil, importlib, sys, viorb_tpu_torch\n"
         "for m in pkgutil.walk_packages(viorb_tpu_torch.__path__, 'viorb_tpu_torch.'):\n"
@@ -110,6 +111,9 @@ def _port_imports_no_jax():
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
+        "new = ['viorb_tpu_torch.' + m for m in ('mapping.map', 'mapping.serialize', 'native',\n"
+        "       'eval.ate', 'solvers.pnp', 'slam.mono', 'io.synthetic')]\n"
+        "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('viorb_tpu_torch')]))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,7 +123,7 @@ def _port_imports_no_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30
 
 
 def test_tracking_step_matches_reference():

@@ -1,7 +1,7 @@
 """Carry state into the port from numpy.
 
-The system has no weights: its state is the local map, the carry, the
-camera, the extractor configuration and, for bundle adjustment, the
+The system has no weights: its state is the map, the local map, the carry,
+the camera, the extractor configuration and, for bundle adjustment, the
 keyframe poses, landmarks and observation grid. These functions take that
 state as plain numpy arrays and numbers — for instance the JAX package's
 arrays after `np.asarray` — so the port can start from exactly the state
@@ -19,6 +19,7 @@ import torch
 from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import FrameFeatures
 from viorb_tpu_torch.geometry.camera import PinholeCamera
+from viorb_tpu_torch.mapping.serialize import map_store_from_arrays  # noqa: F401  (the map's state)
 from viorb_tpu_torch.optim.ba import BAObservations, VisionBAState
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap, TrackCarry
 

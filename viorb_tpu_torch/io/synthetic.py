@@ -1,6 +1,7 @@
 """Synthetic textured-room renderer with exact ground truth (port of
-viorb_tpu/io/synthetic.py: the room, the 'arc' trajectory and the frame
-renderer), plus the frame-0 map builder of the tracking benchmark.
+viorb_tpu/io/synthetic.py: the room, the 'arc' trajectory, the frame
+renderer and `make_sequence` for the arc), plus the tracking benchmark's
+map lifted from frame 0.
 
 The room and the trajectory stay numpy, seeded as in the reference, so
 both packages see the same world. `render_frame` is torch and runs on the
@@ -10,7 +11,7 @@ fully vectorized. No disk cache and no IMU.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,6 +221,32 @@ def make_trajectory(n_frames: int, dt: float = 0.05) -> Tuple[np.ndarray, np.nda
     ts = np.arange(n_frames) * dt
     rs, cs = _arc_pose_params(ts)
     return rs.astype(np.float32), cs.astype(np.float32)
+
+
+class SyntheticSequence(NamedTuple):
+    images: List[torch.Tensor]  # (H,W) f32 0..255, on the device they were rendered on
+    r_wc: np.ndarray  # (T,3,3) ground-truth camera-to-world rotations
+    c_w: np.ndarray  # (T,3) ground-truth camera centers
+    timestamps: np.ndarray  # (T,)
+    cam: PinholeCamera
+
+
+def make_sequence(
+    n_frames: int = 60,
+    cam: Optional[PinholeCamera] = None,
+    seed: int = 0,
+    dt: float = 0.05,
+    device=None,
+) -> SyntheticSequence:
+    """The reference's rendered 'arc' sequence, rendered on `device` (the
+    card unless the caller names another), with no disk cache; the frames
+    are f32, as the reference's. The other trajectory kinds, depth, noise
+    and the IMU are not ported yet."""
+    cam = cam or PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
+    r_wc, c_w = make_trajectory(n_frames, dt)
+    planes = stack_planes(default_room(seed), device=device)
+    images = [render_frame(cam, r_wc[i], c_w[i], planes) for i in range(n_frames)]
+    return SyntheticSequence(images, r_wc, c_w, np.arange(n_frames) * dt, cam)
 
 
 def lift_features_to_map(
