@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
-functions and lock-step SLAM on one NVIDIA GPU.
+functions and lock-step, async and streaming SLAM on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -45,7 +45,25 @@ Phases, in order; any failure raises and exits non-zero:
      frame, init ms, tracking ms/frame, the mapping job's phases, fps;
      then a fresh MonoSlam loads the saved map, relocalizes by PnP, tracks,
      and recovers a frame through the fallback chain;
-  7. time the fused launch, the 8 single-level launches, their plain
+  7. async mapping and streaming: MonoSlam with bench.py's pipeline
+     configuration (1000 features, a keyframe at least every 5 frames,
+     streaming depth 2) over the same 40-frame arc as 8-bit frames, each
+     measured run after a warm-up run of the same mode: lock-step, async,
+     streaming and staged streaming (frames already on the card), timed
+     (fps with wait_mapping_idle, the tracker thread's host latency per
+     frame, the mapping jobs' phases on the worker, frames dropped, carry
+     re-anchors, K1 launches = graph replays + eager extractions = frames,
+     host syncs of the tracker thread per steady frame: 1 async, 0
+     streaming); the reference's contracts: async with the frames fed at
+     the camera's rate ends OK with the map published and ATE < 0.06 m; a
+     mapping job held on an event while keyframe frames return and the
+     queue gate bounds keyframes; streaming flushed after every frame
+     equal to lock-step on frames 0-9 within tests/test_streaming.py's
+     tolerances; async and streaming fed as fast as the tracker takes the
+     frames track >= 80 % of them with ATE <= max(5x lock-step, 0.20 m);
+     recovery after frames 9-14 go blank; no graph capture beside the
+     threads; clean shutdowns;
+  8. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -61,6 +79,8 @@ anywhere else, the package import fails.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import json
 import statistics
@@ -83,6 +103,19 @@ SLAM_FRAMES, SLAM_DT = 40, 0.1  # the sequence of tests/test_e2e_mono.py
 # the CPU test's tolerances against the reference's golden (tests/test_torch_mono.py)
 SLAM_KF_TOL, SLAM_POINT_SHARE, SLAM_TRAJ_SHARE, SLAM_ATE_FACTOR = 1, 0.15, 0.03, 1.5
 SLAM_GOLDENS = tuple(f"full_seed{seed}" for seed in range(5))  # the reference's runs with seeds 0-4
+# async mapping and streaming: bench.py's pipeline configuration on tests/test_streaming.py's clip
+THREADED_KF_INTERVAL, THREADED_DEPTH = 5, 2
+THREADED_MODES = {
+    "lock-step": {},
+    "async": {"async_mapping": True},
+    "streaming": {"streaming": True},
+    "staged streaming": {"streaming": True},
+    "streaming, depth 1": {"streaming": True, "streaming_depth": 1},
+}
+WARM_FRAMES = 12  # a warm-up run: init, a few mapping jobs, steady frames
+HELD_FRAMES = 20
+FLUSHED_FRAMES = 10
+BLACKOUT, BLACKOUT_FRAMES, RECOVERED_FROM = range(9, 15), 28, 16
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the yardsticks of
 # each kernel's bound.
@@ -407,6 +440,264 @@ def _slam_phase(cam, dev, tag: str) -> int:
     print(f"{tag} MonoSlam whole run: {wall_s:.3f} s for {SLAM_FRAMES} frames = {SLAM_FRAMES / wall_s:.2f} fps "
           f"(host clock; warm-up run {warm_s:.2f} s)")
     return launches
+
+
+class _SyncsByThread:
+    """Host syncs PyTorch reports while the block runs, by the thread that
+    made them (`threading.get_ident()`): the sync debug mode and the
+    warnings module are process-wide, so counting them in one place would
+    mix the tracker's syncs with a worker's."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def hook(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            self.counts[threading.get_ident()] += 1
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self.hook
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        return False
+
+
+def _threaded_slam_phase(cam, dev, tag: str) -> dict:
+    """Async mapping and streaming MonoSlam at full width: bench.py's
+    pipeline configuration (1000 features, a keyframe at least every 5
+    frames, streaming depth 2) on tests/test_streaming.py's clip (the
+    40-frame arc at dt=0.1), 8-bit frames from the host, or already on the
+    card for staged streaming. Every measured run comes after a warm-up run
+    of the same mode over the first WARM_FRAMES frames, with the launch
+    counts set to 0 just before it. Asserts the reference's contracts
+    (tests/test_async_mapping.py, tests/test_streaming.py), K1 launches =
+    graph replays + eager extractions = frames, the tracker thread's host
+    syncs per steady frame (1 async, 0 streaming), no graph capture beside
+    the threads, and clean shutdowns. Returns K1 launches by path."""
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch import cuda_graph
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam.mono import MonoSlam
+    from viorb_tpu_torch.slam.tracking_loop import make_pipeline_track_core, make_streaming_track_core
+
+    seq = synthetic.make_sequence(SLAM_FRAMES, cam=cam, dt=SLAM_DT, device=dev)
+    staged = [synthetic.to_uint8(im) for im in seq.images]  # on the card
+    host = [im.cpu().numpy() for im in staged]  # 8-bit frames from the host, as bench.py feeds them
+    me = threading.get_ident()
+    cores = None
+
+    def ate_of(traj):
+        return ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+
+    def run(mode, frames, measure=True, flushed=False, blank=(), hold=None, paced=False):
+        """One MonoSlam run; returns its record. `hold`: a threading.Event
+        the mapping jobs wait for; `paced`: each frame fed at its timestamp
+        after the start, as a camera delivers it, else as fast as the
+        tracker takes them."""
+        nonlocal cores
+        slam = MonoSlam(cam, device=dev, n_features=1000, kf_max_interval=THREADED_KF_INTERVAL,
+                        **{"streaming_depth": THREADED_DEPTH, **THREADED_MODES[mode]})
+        if cores is None:
+            cores = (make_pipeline_track_core(cam, slam.extractor), make_streaming_track_core(cam, slam.extractor))
+        if hold is not None:
+            job = slam._mapping_job
+
+            def held_job(kf_id):
+                if not hold.wait(timeout=120):
+                    raise RuntimeError("the held mapping job was never released")
+                job(kf_id)
+
+            slam._mapping_job = held_job
+        blank_frame = np.zeros_like(host[0]) if isinstance(frames[0], np.ndarray) else torch.zeros_like(staged[0])
+        captures = [len(c.captured()) for c in cores]
+        for c in cores:
+            c.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        rec = dict(ms=[], syncs=[], kf=[], dispatch=[], ok=[], busy=[], rows=[])
+        with (_SyncsByThread() if measure else contextlib.nullcontext()) as syncs:
+            t0 = time.perf_counter()
+            try:
+                for i in range(len(frames)):
+                    if paced:
+                        time.sleep(max(0.0, t0 + float(seq.timestamps[i]) - time.perf_counter()))
+                    made, before = slam.map._next_kf, syncs.counts[me] if measure else 0
+                    rec["busy"].append(slam._mapping_queue.unfinished_tasks > 0)  # a job queued or running
+                    tick = time.perf_counter()
+                    info = slam.process_frame(blank_frame if i in blank else frames[i], float(seq.timestamps[i]))
+                    rec["ms"].append((time.perf_counter() - tick) * 1e3)
+                    rec["syncs"].append((syncs.counts[me] if measure else 0) - before)
+                    rec["kf"].append(slam.map._next_kf > made)
+                    rec["dispatch"].append("queued" in info)
+                    rec["ok"].append(info["state"] == "OK")
+                    if flushed:
+                        slam.flush_stream()
+                        slam.wait_mapping_idle()
+                        rec["rows"].append((slam.state, slam.n_tracked, sorted(slam.map.keyframes),
+                                            int(slam.map.pt_active.sum())))
+                    elif not slam.async_mapping:
+                        rec["rows"].append((slam.state, slam.n_tracked, sorted(slam.map.keyframes),
+                                            int(slam.map.pt_active.sum())))
+                    if hold is not None and rec["kf"][-1] and i > 2:
+                        _check(not slam.job_times and slam._mapping_queue.unfinished_tasks >= 1,
+                               f"{mode}: a keyframe frame returned only after its mapping job ran")
+                if hold is not None:
+                    rec["held_kfs"] = sum(rec["kf"][3:])
+                    hold.set()
+                slam.wait_mapping_idle()
+                rec["s"] = time.perf_counter() - t0
+                rec["traj"] = slam.trajectory_tum()
+                rec["state"], rec["version"] = slam.state, slam.map.version
+                rec["n_kfs"], rec["n_points"] = len(slam.map.kf_ids()), len(slam.map.active_point_ids())
+            finally:
+                if hold is not None:
+                    hold.set()
+                threads = [t for t in (slam._worker, slam._collector) if t is not None]
+                slam.shutdown()
+        _check(slam._worker is None and slam._collector is None and not any(t.is_alive() for t in threads)
+               and cuda_graph.card_threads() == 0, f"{mode}: shutdown left a thread running")
+        _check([len(c.captured()) for c in cores] == captures or not measure,
+               f"{mode}: a graph was captured during the measured run")
+        rec["worker_syncs"] = sum(n for t, n in (syncs.counts.items() if measure else ()) if t != me)
+        graph = sum(c.launches()["CELL_LAUNCHES"] for c in cores)
+        rec["k1"] = dict(graph=graph, replays=sum(c.replays for c in cores), eager=fast_cuda.CELL_LAUNCHES,
+                         single=fast_cuda.LAUNCHES + sum(c.launches()["LAUNCHES"] for c in cores))
+        rec["jobs"], rec["deltas"], rec["waits"] = slam.job_times, slam.carry_deltas, slam.collector_waits
+        rec["gate_ms"] = slam.gate_ms
+        if measure:
+            _check(rec["k1"]["graph"] == rec["k1"]["replays"] and rec["k1"]["single"] == 0
+                   and rec["k1"]["graph"] + rec["k1"]["eager"] == len(frames),
+                   f"{mode}: K1 launches {rec['k1']} for {len(frames)} frames: each frame must be extracted once")
+        return rec
+
+    def report(mode, rec, n):
+        """Prints a run's numbers; returns (its steady frames, their host syncs
+        as {syncs: frames})."""
+        ms, kf, dispatch, ok, busy = (np.array(rec[k]) for k in ("ms", "kf", "dispatch", "ok", "busy"))
+        init = int(np.argmax(ok))  # the frame that initialized
+        traj = rec["traj"]
+        streaming = "streaming" in mode
+        steady = dispatch.copy() if streaming else ok & ~kf
+        other = ~dispatch if streaming else kf.copy()
+        steady[: init + 1] = other[: init + 1] = False
+        parts = {k: float(np.median([j[k] for j in rec["jobs"]])) for k in rec["jobs"][0]} if rec["jobs"] else {}
+        deltas = np.array(rec["deltas"]).reshape(-1, 2)
+        sync_hist = {int(k): int(v) for k, v in zip(*np.unique(np.array(rec["syncs"])[steady], return_counts=True))}
+        print(f"{tag} MonoSlam {mode}: {n} frames in {rec['s']:.3f} s = {n / rec['s']:.2f} fps (host clock, "
+              f"wait_mapping_idle included); final {rec['state']}, {rec['n_kfs']} keyframes, {rec['n_points']} "
+              f"points, map version {rec['version']}; {n - len(traj)} frames dropped (no trajectory entry); "
+              f"ATE {ate_of(traj):.4f} m after Sim3")
+        print(f"{tag} MonoSlam {mode}, tracker thread, host clock: "
+              f"{'dispatch-only' if streaming else 'steady'} frames median {np.median(ms[steady]):.3f} / "
+              f"p90 {np.percentile(ms[steady], 90):.3f} ms ({int(steady.sum())} frames); "
+              f"{'synchronous' if streaming else 'keyframe-inserting'} frames "
+              + (f"median {np.median(ms[other]):.3f} / p90 {np.percentile(ms[other], 90):.3f} ms "
+                 f"({int(other.sum())} frames)" if other.any() else "none"))
+        if streaming:
+            gate = np.zeros(n)
+            gate[dispatch] = rec["gate_ms"]
+            print(f"{tag} MonoSlam {mode}, dispatch-only frames: blocked in the backlog and depth gates median "
+                  f"{np.median(gate[steady]):.3f} ms, the rest (local map, re-anchor, replay, copies) median "
+                  f"{np.median((ms - gate)[steady]):.3f} / p90 {np.percentile((ms - gate)[steady], 90):.3f} ms")
+        elif mode != "lock-step":
+            for label, sel in (("a job queued or running", steady & busy), ("the worker idle", steady & ~busy)):
+                if sel.any():
+                    print(f"{tag} MonoSlam {mode}, steady frames with {label}: median {np.median(ms[sel]):.3f} ms "
+                          f"({int(sel.sum())} frames)")
+        print(f"{tag} MonoSlam {mode}, host syncs of the tracker thread per "
+              f"{'dispatch-only' if streaming else 'steady'} frame: {sync_hist} (syncs: frames); the other threads' "
+              f"syncs {rec['worker_syncs']}; the collector's waits {rec['waits']} (one a batch)")
+        print(f"{tag} MonoSlam {mode}, mapping jobs {'on the worker thread' if mode != 'lock-step' else 'inline'}, "
+              f"median of {len(rec['jobs'])}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " ms")
+        print(f"{tag} MonoSlam {mode}: carry re-anchors {len(deltas)}"
+              + (f", |d_t| max {deltas[:, 0].max():.2e} median {np.median(deltas[:, 0]):.2e}, |dR - I| max "
+                 f"{deltas[:, 1].max():.2e}" if len(deltas) else "")
+              + f"; K1 launches {rec['k1']['graph']} in {rec['k1']['replays']} graph replays + {rec['k1']['eager']} "
+              f"eager = {rec['k1']['graph'] + rec['k1']['eager']} for {n} frames")
+        return steady, sync_hist
+
+    n = SLAM_FRAMES
+    results = {}
+    for mode, frames in (("lock-step", host), ("async", host), ("streaming", host), ("staged streaming", staged)):
+        t_warm = time.perf_counter()
+        run(mode, frames[:WARM_FRAMES], measure=False)
+        rec = results[mode] = run(mode, frames)
+        print(f"{tag} MonoSlam {mode}: warm-up run over {WARM_FRAMES} frames {time.perf_counter() - t_warm - rec['s']:.2f} s")
+        steady, hist = report(mode, rec, n)
+        if mode == "async":
+            _check(np.median(np.array(rec["syncs"])[steady]) == 1, f"async: a steady frame syncs once: {hist}")
+        if "streaming" in mode:
+            _check(set(hist) == {0}, f"{mode}: the tracker thread synced on a dispatch-only frame: {hist}")
+    lock_traj = results["lock-step"]["traj"]
+    lock_ate = ate_of(lock_traj)
+
+    # the async contract (tests/test_async_mapping.py), with the frames fed
+    # at the camera's rate (dt = 0.1 s): fed as fast as the tracker takes
+    # them (~20 ms a frame), a keyframe comes every ~0.1 s against a ~0.13 s
+    # mapping job, the worker falls behind and skips BAs, and the outcome
+    # depends on the thread timing (below: held to the laggy envelope)
+    paced = run("async", host, paced=True)
+    report("async, fed at the camera's rate", paced, n)
+    _check(paced["state"] == "OK" and paced["version"] > 0 and ate_of(paced["traj"]) < 0.06,
+           f"async at the camera's rate: final {paced['state']}, map version {paced['version']}, "
+           f"ATE {ate_of(paced['traj']):.4f} m")
+    rec = results["async"]
+    _check(rec["state"] == "OK" and rec["version"] > 0, f"async: final {rec['state']}, map version {rec['version']}")
+    # the un-flushed contract (tests/test_streaming.py): fed as fast as the
+    # tracker takes them, async and streaming, host and staged frames
+    for mode in ("async", "streaming", "staged streaming"):
+        rec = results[mode]
+        _check(len(rec["traj"]) >= 0.8 * n and ate_of(rec["traj"]) <= max(5 * lock_ate, 0.20),
+               f"{mode}: {len(rec['traj'])} of {n} frames tracked, ATE {ate_of(rec['traj']):.4f} m "
+               f"(lock-step {lock_ate:.4f} m)")
+
+    # a mapping job held on an event: keyframe frames return, the queue gate
+    # bounds keyframe production (tests/test_async_mapping.py)
+    run("async", host[:WARM_FRAMES], measure=False)
+    held = run("async", host[:HELD_FRAMES], hold=threading.Event())
+    print(f"{tag} MonoSlam async, mapping held on an event for {HELD_FRAMES} frames: {held['held_kfs']} keyframes "
+          f"queued, frames returned in median {np.median(held['ms'][3:]):.3f} ms; then "
+          f"{len(held['jobs'])} jobs ran, clean shutdown")
+    _check(2 <= held["held_kfs"] <= HELD_FRAMES / THREADED_KF_INTERVAL + 3,
+           f"async, held mapping: {held['held_kfs']} keyframes inserted in {HELD_FRAMES} frames")
+
+    # flushed after every frame, streaming reproduces lock-step on frames 0-9
+    # with tests/test_streaming.py's tolerances
+    run("streaming, depth 1", host[:FLUSHED_FRAMES], measure=False, flushed=True)
+    flushed = run("streaming, depth 1", host[:FLUSHED_FRAMES], flushed=True)
+    for i, (a, b) in enumerate(zip(flushed["rows"], results["lock-step"]["rows"])):
+        _check(a[0] == b[0] and abs(a[1] - b[1]) <= 6 and a[2] == b[2] and abs(a[3] - b[3]) <= 12,
+               f"flushed streaming vs lock-step, frame {i}: {a} vs {b}")
+    print(f"{tag} MonoSlam streaming flushed after every frame (depth 1), frames 0-{FLUSHED_FRAMES - 1}: "
+          f"state, keyframe ids equal to lock-step's; inliers within "
+          f"{max(abs(a[1] - b[1]) for a, b in zip(flushed['rows'], results['lock-step']['rows']))}, points within "
+          f"{max(abs(a[3] - b[3]) for a, b in zip(flushed['rows'], results['lock-step']['rows']))}")
+
+    # a blackout: frames 9-14 blank; the run recovers (tests/test_streaming.py)
+    run("streaming", host[:BLACKOUT_FRAMES], measure=False, blank=BLACKOUT)
+    dark = run("streaming", host[:BLACKOUT_FRAMES], blank=BLACKOUT)
+    after = int((dark["traj"][:, 0] >= seq.timestamps[RECOVERED_FROM]).sum())
+    print(f"{tag} MonoSlam streaming, frames {BLACKOUT[0]}-{BLACKOUT[-1]} blank: {after} trajectory entries from "
+          f"frame {RECOVERED_FROM} on, final {dark['state']}, {len(dark['traj'])} of {BLACKOUT_FRAMES} frames tracked")
+    _check(after >= 4, f"streaming did not recover after the blackout: {after} entries from frame {RECOVERED_FROM} on")
+    return {"MonoSlam async": results["async"]["k1"]["graph"] + results["async"]["k1"]["eager"],
+            "MonoSlam streaming": results["streaming"]["k1"]["graph"] + results["streaming"]["k1"]["eager"]}
 
 
 def main() -> int:
@@ -872,7 +1163,10 @@ def main() -> int:
     # ---- 6. lock-step SLAM: MonoSlam at its defaults ---------------------
     slam_launches = _slam_phase(cam, dev, tag)
 
-    # ---- 7. times --------------------------------------------------------
+    # ---- 7. async mapping and streaming MonoSlam --------------------------
+    threaded_launches = _threaded_slam_phase(cam, dev, tag)
+
+    # ---- 8. times --------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -1053,9 +1347,10 @@ def main() -> int:
             "replaces": "viorb_tpu/features/fast_pallas.py:30, viorb_tpu/features/fast.py:79",
             "path": f"make_tracking_step, make_pipeline_track_core and make_streaming_track_core, each one "
                     f"CUDA graph a frame, over {N_FRAMES - 1} frames each (launches in the capture x replays); "
-                    f"MonoSlam lock-step over {SLAM_FRAMES} frames (graph replays + eager extractions)",
-            "launches": cell_launches + slam_launches,
-            "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches},
+                    f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each (graph replays + "
+                    f"eager extractions)",
+            "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
+            "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
             "max_abs_err": cells_err,
             "ms": fused_ms,
             "plain_ms": fused_plain_ms,

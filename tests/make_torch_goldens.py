@@ -34,6 +34,14 @@ counts, the initialization frame, the TUM trajectory, the ATE to the
 renderer's ground truth after Sim3 alignment, the configuration and the
 commit of the reference package it was made on.
 
+Besides, "half_stream": the reference's streaming mode on the first
+STREAM_FRAMES frames of "half", flushed after every frame (`flush_stream`
+and `wait_mapping_idle`: zero lag, tests/test_streaming.py's serialized
+run) at `streaming_depth=1`. It records per frame the state, the tracked
+count, the live keyframe ids (padded with -1) and the live point count,
+which tests/test_torch_streaming.py holds the port's flushed streaming run
+to with tests/test_streaming.py's tolerances.
+
 Why a golden and not a live run: tests/test_e2e_mono.py already runs the
 reference's MonoSlam in the same tier-1 suite (84.5 s alone, mostly XLA
 compiles), and that suite is cut at 1470 s; a second live reference run
@@ -69,6 +77,7 @@ FULL = dict(width=752, height=480, fx=450.0, cx=376.0, cy=240.0, n_frames=40, dt
 FULL_SEEDS = (0, 1, 2, 3, 4)
 CONFIGS.update({f"full_seed{seed}": dict(FULL, seed=seed) for seed in FULL_SEEDS})
 SLAM_KEYS = ("n_features", "local_window", "max_local_points", "max_ba_landmarks", "kf_max_interval", "seed")
+STREAM_FRAMES = 10  # tests/test_streaming.py's prefix
 
 
 def reference_commit() -> str:
@@ -108,11 +117,42 @@ def run_reference(name: str) -> dict:
     }
 
 
+def run_reference_streaming(name: str) -> dict:
+    """The reference's zero-lag streaming run on the first STREAM_FRAMES
+    frames of configuration `name`."""
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.slam.mono import MonoSlam as RefMonoSlam
+    from viorb_tpu_torch.interop import camera_from_fields
+    from viorb_tpu_torch.io import synthetic
+
+    c = CONFIGS[name]
+    ref_cam = RefCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    seq = synthetic.make_sequence(c["n_frames"], cam=camera_from_fields(ref_cam), dt=c["dt"], device="cpu")
+    slam = RefMonoSlam(ref_cam, streaming=True, streaming_depth=1, **{k: c[k] for k in SLAM_KEYS})
+    rows, kf_ids = [], []
+    try:
+        for image, ts in zip(seq.images[:STREAM_FRAMES], seq.timestamps[:STREAM_FRAMES]):
+            slam.process_frame(image.numpy(), float(ts))
+            slam.flush_stream()
+            slam.wait_mapping_idle()
+            rows.append((STATES.index(slam.state), slam.n_tracked, int(slam.map.pt_active.sum())))
+            kf_ids.append(sorted(slam.map.keyframes))
+    finally:
+        slam.shutdown()
+    rows = np.asarray(rows, np.int64)
+    ids = np.full((len(kf_ids), max(map(len, kf_ids))), -1, np.int64)
+    for i, k in enumerate(kf_ids):
+        ids[i, : len(k)] = k
+    return {"state": rows[:, 0], "n_tracked": rows[:, 1], "n_points": rows[:, 2], "kf_ids": ids}
+
+
 def make() -> dict:
     out = {"reference_commit": np.array(reference_commit())}
     for name in CONFIGS:
         for k, v in run_reference(name).items():
             out[f"{name}_{k}"] = np.asarray(v)
+    for k, v in run_reference_streaming("half").items():
+        out[f"half_stream_{k}"] = v
     return out
 
 

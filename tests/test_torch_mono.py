@@ -81,9 +81,8 @@ def _run(seq, cfg):
 
 
 def _entry_points_refuse_what_is_not_ported(cam):
-    for kwargs in ({"async_mapping": True}, {"streaming": True}, {"vocabulary": object()}):
-        with pytest.raises(NotImplementedError):
-            MonoSlam(cam, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        MonoSlam(cam, device="cpu", vocabulary=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MonoSlam(cam)

@@ -1,0 +1,173 @@
+"""The port's streaming MonoSlam on the CPU: the tracker thread dispatches
+the streaming core with a pose carry on the device, a collector thread
+keeps the books (tests/test_streaming.py's contracts).
+
+The frames and configuration are tests/test_torch_mono.py's: the port's
+renderer at half size (376x240), the arc at dt=0.2 s, 300 features, a
+keyframe at least every 5 frames. The checks:
+  * flushed after every frame (`flush_stream` + `wait_mapping_idle`: zero
+    lag, `streaming_depth=1`), the first 10 frames agree frame by frame
+    with the port's lock-step run and with the reference's lock-step run
+    (the golden tests/torch_mono_golden.npz) within tests/test_streaming.py's
+    tolerances (the same state and keyframes, inliers within 6, live points
+    within 12), and with the reference's own zero-lag streaming run on the
+    same frames (the golden's "half_stream_*": the same state and live
+    keyframe ids, inliers and live points within those tolerances, except
+    where the reference's streaming run is farther from its own lock-step
+    run on that frame: there the port may be as far. On these frames the
+    reference's two runs are up to 7 inliers (frame 7), 19 points (frame 6)
+    and one keyframe (frame 9) apart, where the port's two runs agree
+    exactly);
+  * the carry re-anchor: after a published map update moves the carry's
+    keyframe, the device carry is T_f' = T_f o (T_kf_old^-1 o T_kf_new),
+    held to tests/test_batched_mapping.py's numpy formula, and the
+    frame-to-keyframe relative pose and the velocity are unchanged;
+  * a blackout: frames 5-7 blank (0.6 s, as tests/test_streaming.py's six
+    frames at dt=0.1) at the default depth 2; the frozen carry hands
+    control back to the synchronous fallback chain and the run recovers:
+    at least 4 trajectory entries from frame 9 on. Then shutdown() stops
+    both threads.
+
+One test per file: see tests/test_torch_fast.py."""
+
+import numpy as np
+import torch
+
+from make_torch_goldens import CONFIGS, SLAM_KEYS, STATES, STREAM_FRAMES, load
+from viorb_tpu_torch.geometry.camera import PinholeCamera
+from viorb_tpu_torch.io import synthetic
+from viorb_tpu_torch.slam.mono import MonoSlam
+from viorb_tpu_torch.slam.tracking_loop import TrackCarry
+
+torch.set_num_threads(1)
+
+INLIER_TOL, POINT_TOL = 6, 12  # tests/test_streaming.py's
+BLACKOUT, BLACKOUT_FRAMES, RECOVERED_FROM, MIN_RECOVERED = range(5, 8), 16, 9, 4
+
+
+def _rows(seq, cfg, **mode):
+    """(state, inliers, live keyframe ids, live points) after each of the
+    first STREAM_FRAMES frames; a streaming run is flushed after each."""
+    slam = MonoSlam(seq.cam, device="cpu", **mode, **{k: cfg[k] for k in SLAM_KEYS})
+    rows = []
+    try:
+        for image, ts in zip(seq.images[:STREAM_FRAMES], seq.timestamps[:STREAM_FRAMES]):
+            slam.process_frame(image, float(ts))
+            slam.flush_stream()
+            slam.wait_mapping_idle()
+            rows.append((STATES.index(slam.state), slam.n_tracked, sorted(slam.map.keyframes),
+                         int(slam.map.pt_active.sum())))
+    finally:
+        slam.shutdown()
+    return slam, rows
+
+
+def _agree(got, want, what):
+    """Rows of (state, inliers, keyframes, points), frame by frame;
+    keyframes are live ids or a count."""
+    assert len(got) == len(want) == STREAM_FRAMES, (len(got), len(want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a[0] == b[0], f"{what}, frame {i}: state {a[0]} vs {b[0]}"
+        assert abs(a[1] - b[1]) <= INLIER_TOL, f"{what}, frame {i}: inliers {a[1]} vs {b[1]}"
+        assert a[2] == b[2], f"{what}, frame {i}: keyframes {a[2]} vs {b[2]}"
+        assert abs(a[3] - b[3]) <= POINT_TOL, f"{what}, frame {i}: points {a[3]} vs {b[3]}"
+
+
+def _near_reference_streaming(got, ref_stream, ref_lock):
+    """The port's rows against the reference's streaming run's, allowing on
+    each frame the reference streaming run's own distance from its
+    lock-step run (keyframes as a count there) where that is larger."""
+    what = "port streaming vs the reference's streaming"
+    for i, (a, b, c) in enumerate(zip(got, ref_stream, ref_lock)):
+        assert a[0] == b[0], f"{what}, frame {i}: state {a[0]} vs {b[0]}"
+        assert abs(a[1] - b[1]) <= max(INLIER_TOL, abs(b[1] - c[1])), f"{what}, frame {i}: inliers {a[1]} vs {b[1]}"
+        # where the reference's own runs hold different keyframes, the port
+        # may hold its lock-step's: the first of the streaming run's
+        assert a[2] == b[2] or (len(b[2]) != c[2] and a[2] == b[2][: c[2]]), \
+            f"{what}, frame {i}: keyframes {a[2]} vs {b[2]}"
+        assert abs(a[3] - b[3]) <= max(POINT_TOL, abs(b[3] - c[3])), f"{what}, frame {i}: points {a[3]} vs {b[3]}"
+
+
+def _reanchor_matches_formula(slam):
+    """Move the carry's anchor keyframe as a BA write-back would, publish,
+    and re-anchor: the device carry against the numpy formula."""
+    rng = np.random.default_rng(1)
+
+    def rand_pose():
+        w = rng.normal(0, 0.3, 3)
+        th = np.linalg.norm(w)
+        k = w / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+        return R.astype(np.float32), rng.normal(0, 1, 3).astype(np.float32)
+
+    (r_kf_old, t_kf_old), (r_kf_new, t_kf_new), (r_f, t_f), (vel_r, vel_t) = (rand_pose() for _ in range(4))
+    kf_id = slam.last_kf_id
+    kf = slam.map.keyframes[kf_id]
+    kf.r_cw, kf.t_cw = r_kf_old, t_kf_old
+    slam._carry_anchor = (kf_id, r_kf_old.copy(), t_kf_old.copy(), slam.map.version)
+    slam._dev_carry = TrackCarry(*(torch.from_numpy(x) for x in (r_f, t_f, vel_r, vel_t)))
+    kf.r_cw, kf.t_cw = r_kf_new, t_kf_new
+    slam.map.version += 1
+    deltas = len(slam.carry_deltas)
+    slam._reanchor_carry()
+    assert len(slam.carry_deltas) == deltas + 1
+    # the formula of tests/test_batched_mapping.py
+    d_r = r_kf_old.T @ r_kf_new
+    d_t = r_kf_old.T @ (t_kf_new - t_kf_old)
+    r_f2, t_f2 = r_f @ d_r, r_f @ d_t + t_f
+    c = slam._dev_carry
+    np.testing.assert_allclose(c.r_cw.numpy(), r_f2, atol=1e-5)
+    np.testing.assert_allclose(c.t_cw.numpy(), t_f2, atol=1e-5)
+    np.testing.assert_array_equal(c.vel_r.numpy(), vel_r)
+    np.testing.assert_array_equal(c.vel_t.numpy(), vel_t)
+
+    def rel(r_a, t_a, r_b, t_b):  # T_a o T_b^-1
+        r = r_a @ r_b.T
+        return r, t_a - r @ t_b
+
+    for a, b in zip(rel(r_f, t_f, r_kf_old, t_kf_old), rel(c.r_cw.numpy(), c.t_cw.numpy(), r_kf_new, t_kf_new)):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    # re-anchored once per published update: the anchor now holds the new pose
+    slam._reanchor_carry()
+    assert len(slam.carry_deltas) == deltas + 1
+
+
+def _blackout_recovers(seq, cfg):
+    slam = MonoSlam(seq.cam, device="cpu", streaming=True, streaming_depth=2, **{k: cfg[k] for k in SLAM_KEYS})
+    blank = torch.zeros_like(seq.images[0])
+    try:
+        for i in range(BLACKOUT_FRAMES):
+            slam.process_frame(blank if i in BLACKOUT else seq.images[i], float(seq.timestamps[i]))
+        slam.wait_mapping_idle()
+        traj = slam.trajectory_tum()
+    finally:
+        threads = (slam._worker, slam._collector)
+        slam.shutdown()
+    assert slam._worker is None and slam._collector is None and not any(t.is_alive() for t in threads)
+    recovered = int((traj[:, 0] >= seq.timestamps[RECOVERED_FROM]).sum())
+    assert recovered >= MIN_RECOVERED, ("did not recover after the blackout", traj[:, 0])
+
+
+def test_streaming_matches_reference_and_lockstep():
+    cfg = CONFIGS["half"]
+    gold = load()
+    cam = PinholeCamera(fx=cfg["fx"], fy=cfg["fx"], cx=cfg["cx"], cy=cfg["cy"], width=cfg["width"],
+                        height=cfg["height"])
+    seq = synthetic.make_sequence(cfg["n_frames"], cam=cam, dt=cfg["dt"], device="cpu")
+    slam, stream = _rows(seq, cfg, streaming=True, streaming_depth=1)
+    assert slam.collector_waits == 0 and len(slam.job_times) >= 2  # the CPU has no events to wait on
+    _, lock = _rows(seq, cfg)
+    _agree(stream, lock, "port streaming vs the port's lock-step")
+    ref_lock = [tuple(int(gold[f"half_{k}"][i]) for k in ("state", "n_tracked", "n_kfs", "n_points"))
+                for i in range(STREAM_FRAMES)]
+    _agree([(s, n, len(k), p) for s, n, k, p in stream], ref_lock, "port streaming vs the reference's lock-step")
+    ref_stream = [
+        (int(s), int(n), [int(k) for k in ids if k >= 0], int(p))
+        for s, n, ids, p in zip(gold["half_stream_state"], gold["half_stream_n_tracked"],
+                                gold["half_stream_kf_ids"], gold["half_stream_n_points"])
+    ]
+    assert len(ref_stream) == STREAM_FRAMES
+    _near_reference_streaming(stream, ref_stream, ref_lock)
+    _reanchor_matches_formula(slam)
+    _blackout_recovers(seq, cfg)

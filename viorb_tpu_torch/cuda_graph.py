@@ -41,11 +41,20 @@ shared state), one capture at a time in the process. A capture is made in
 threads do on the card meanwhile (allocations and eager kernel launches on
 streams of their own: `chip_smoke.py` captures beside such a thread)
 neither fails the capture nor is recorded into it, and their launches are
-counted as ever. Freeing cached memory or replaying another graph beside a
-capture is untried. One thing they must not do while
-a capture runs: draw from the card's DEFAULT random generator, which
-PyTorch hands to the capture (the draw raises in their thread); a
-`torch.Generator` of their own is fine.
+counted as ever. One thing they must not do while a capture runs: draw
+from the card's DEFAULT random generator, which PyTorch hands to the
+capture (the draw raises in their thread); a `torch.Generator` of their
+own is fine.
+
+What is NOT tried is a capture beside a thread that frees cached memory or
+replays another graph, and a threaded `MonoSlam` has two such threads (the
+mapping worker, the streaming collector). So the rule is: capture first,
+then start the threads. A caller declares each thread that works on the
+card with `register_thread()` before starting it and `unregister_thread()`
+after joining it; while any is declared, a capture raises RuntimeError.
+`MonoSlam` captures the cores its mode replays at the first frame's shapes
+(`GraphedFunction.prepare`), then starts its threads; a frame of another
+shape or dtype then raises instead of capturing beside them.
 """
 
 from __future__ import annotations
@@ -59,6 +68,30 @@ from viorb_tpu_torch import launch_counts
 
 WARMUP_CALLS = 2
 _CAPTURE_LOCK = threading.Lock()  # one stream capture at a time in the process
+_THREADS_LOCK = threading.Lock()
+_card_threads = 0  # threads declared by register_thread() and not yet unregistered
+
+
+def register_thread() -> None:
+    """Declare one more thread that works on the card beside the captures'
+    (see the module docstring): until `unregister_thread`, a capture
+    raises."""
+    global _card_threads
+    with _THREADS_LOCK:
+        _card_threads += 1
+
+
+def unregister_thread() -> None:
+    global _card_threads
+    with _THREADS_LOCK:
+        if _card_threads <= 0:
+            raise RuntimeError("cuda_graph.unregister_thread without register_thread")
+        _card_threads -= 1
+
+
+def card_threads() -> int:
+    """Threads declared by `register_thread` and not yet unregistered."""
+    return _card_threads
 
 
 def _flatten(obj: Any, leaves: List[torch.Tensor]):
@@ -85,6 +118,11 @@ class _Capture:
     """One captured graph: its static inputs and outputs."""
 
     def __init__(self, fn: Callable, in_spec, flat_args: List[torch.Tensor]):
+        if card_threads():
+            raise RuntimeError(
+                f"a CUDA graph capture with {card_threads()} thread(s) working on the card beside it: "
+                "capture before starting them (cuda_graph.py's docstring)"
+            )
         dev = flat_args[0].device
         # contiguous whatever the first caller's strides were: a library
         # call (cuBLAS) picks its kernel by layout, and with it its rounding
@@ -130,20 +168,41 @@ class GraphedFunction:
     def __call__(self, *args):
         flat: List[torch.Tensor] = []
         in_spec = _flatten(args, flat)
+        dev = self._device(flat)
+        if dev.type == "cpu":
+            return self.eager(*args)
+        with self._lock, torch.cuda.device(dev):
+            return self._capture(dev, in_spec, flat).replay(flat)
+
+    def prepare(self, *args) -> None:
+        """Capture the graph for these arguments' shapes and dtypes now, if
+        it is not captured yet, without replaying it (a no-op on the CPU)."""
+        flat: List[torch.Tensor] = []
+        in_spec = _flatten(args, flat)
+        dev = self._device(flat)
+        if dev.type == "cpu":
+            return
+        with self._lock, torch.cuda.device(dev):
+            self._capture(dev, in_spec, flat)
+
+    @staticmethod
+    def _device(flat: List[torch.Tensor]) -> torch.device:
         devices = {t.device for t in flat}
         if len(devices) != 1:
             raise ValueError(f"GraphedFunction: arguments on several devices: {sorted(map(str, devices))}")
         dev = flat[0].device
-        if dev.type == "cpu":
-            return self.eager(*args)
-        if dev.type != "cuda":
+        if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"GraphedFunction: unsupported device {dev}")
+        return dev
+
+    def _capture(self, dev, in_spec, flat) -> _Capture:
+        """The capture for these arguments' shapes and dtypes, made now if
+        there is none yet."""
         key = (dev, tuple((tuple(t.shape), t.dtype) for t in flat))
-        with self._lock, torch.cuda.device(dev):
-            cap = self._captures.get(key)
-            if cap is None:
-                cap = self._captures[key] = _Capture(self.eager, in_spec, flat)
-            return cap.replay(flat)
+        cap = self._captures.get(key)
+        if cap is None:
+            cap = self._captures[key] = _Capture(self.eager, in_spec, flat)
+        return cap
 
     @property
     def replays(self) -> int:

@@ -12,9 +12,9 @@ fixed-capacity struct-of-arrays storage:
     kernels (BA problem assembly emits the landmark-major grid of
     optim.ba directly).
 
-The reference's per-object locks disappear: the SLAM pipeline mutates the
-store from a single orchestration thread and passes immutable snapshots
-into jitted kernels (SURVEY.md §2.3 plan).
+The reference's per-object locks disappear: `MonoSlam` guards the store
+with one lock (`map_lock`), mutates it under that lock and hands the
+device functions snapshots taken under it.
 """
 
 from __future__ import annotations
@@ -84,11 +84,14 @@ class KeyFrameData:
         d = self.desc01
         if d is None:
             # two threads may race here (mapping worker vs tracker
-            # fallback): hold a local ref to the handle so a concurrent
-            # fulfiller clearing desc01_dev cannot break this one
+            # fallback): the handle is read once, so a concurrent fulfiller
+            # clearing desc01_dev cannot break this one, and a block another
+            # fulfiller set is kept
             dev = self.desc01_dev
             if dev is not None:
-                self.desc01 = dev.cpu().numpy()
+                block = dev.cpu().numpy()
+                if self.desc01 is None:
+                    self.desc01 = block
                 self.desc01_dev = None
             d = self.desc01
         return d
@@ -131,6 +134,11 @@ class MapStore:
         self.pt_visible = np.zeros(max_points, np.int32)
         self.pt_first_kf = np.full(max_points, -1, np.int32)
         self.pt_active = np.zeros(max_points, bool)
+        # slot generation, bumped each time a slot is handed to a new point:
+        # a deferred write-back compares it with its snapshot, so it never
+        # lands on a point that took a culled point's slot. Not part of a
+        # checkpoint (the reference's layout has no such array).
+        self.pt_gen = np.zeros(max_points, np.int64)
         # observations: point -> (kf, feat) slots
         self.obs_kf = np.full((max_points, MAX_OBS_PER_POINT), -1, np.int32)
         self.obs_feat = np.full((max_points, MAX_OBS_PER_POINT), -1, np.int32)
@@ -179,6 +187,7 @@ class MapStore:
         self.pt_visible = ext(self.pt_visible, 0)
         self.pt_first_kf = ext(self.pt_first_kf, -1)
         self.pt_active = ext(self.pt_active, False)
+        self.pt_gen = ext(self.pt_gen, 0)
         self.obs_kf = ext(self.obs_kf, -1)
         self.obs_feat = ext(self.obs_feat, -1)
         self.max_points = new_cap
@@ -193,6 +202,7 @@ class MapStore:
             self._next_pt += 1
             if i >= self.max_points:
                 self._grow_points(i + 1)
+        self.pt_gen[i] += 1
         self.pt_xyz[i] = xyz
         self.pt_desc01[i] = desc01
         self.pt_active[i] = True
@@ -241,6 +251,7 @@ class MapStore:
         ids = np.asarray(ids, np.int64)
         kf = self.keyframes[kf_id]
         nb = self.keyframes[nb_id]
+        self.pt_gen[ids] += 1
         self.pt_xyz[ids] = xyz
         self.pt_desc01[ids] = desc01
         self.pt_active[ids] = True

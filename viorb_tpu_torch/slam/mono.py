@@ -1,42 +1,81 @@
-"""Monocular vision-only SLAM, lock-step (port of viorb_tpu/slam/mono.py:
-`MonoSlam` in its default mode, `async_mapping=False, streaming=False`).
+"""Monocular vision-only SLAM (port of viorb_tpu/slam/mono.py: `MonoSlam`
+in its three modes).
 
 Host orchestration of the port's device functions, playing the reference
-ORB-SLAM's Tracking and LocalMapping threads one after the other: each
-frame is tracked, and a keyframe insertion runs the mapping job (the
-reference's LocalMapping step) before the next frame.
+ORB-SLAM's Tracking and LocalMapping threads:
 
-The map lives in MapStore on the host (numpy). Per-frame compute runs on the
-device: a steady frame is ONE replay of the graphed pipeline core
-(`tracking_loop.make_pipeline_track_core`: extraction, projection matching
-with the wide-radius retry, pose LM) and ONE pull of its bookkeeping
-fields; the frame's descriptor bits stay on the device unless it becomes a
-keyframe. The padded local map is uploaded once per map epoch
-(`map.version`, the reference keyframe) and cached. Frames before
-initialization and the fallback chain (reference-keyframe matching, then
-relocalization without a vocabulary, then LOST) run eagerly; so does the
-mapping job (triangulation, fusion, point statistics, local BA, culling).
+  * lock-step (default): each frame is tracked, and a keyframe insertion
+    runs the mapping job (the reference's LocalMapping step) before the
+    next frame;
+  * async (`async_mapping=True`): the mapping job runs on a worker thread,
+    so tracking never blocks on keyframe insertion. The worker takes jobs
+    from a queue, runs every device function of a job on a CUDA stream of
+    its own, and defers each local BA's write-back to the next job (or to
+    `wait_mapping_idle`): keyframes made after the solve's snapshot ride
+    the correction through the newest solved keyframe (the spanning-tree
+    pass). While two jobs are unfinished, only a twice-blown interval cap
+    may insert a keyframe, and a job skips its BA while a newer keyframe
+    waits (at most twice in a row);
+  * streaming (`streaming=True`, implies async): the caller's thread only
+    DISPATCHES the graphed streaming core with a pose carry on the card and
+    starts non-blocking copies of the frame's bookkeeping fields into
+    pinned memory behind one event; a collector thread waits once per batch
+    of in-flight frames, on the last frame's event, and runs the host
+    bookkeeping (map counters, keyframe decision, trajectory) with a lag
+    bounded by `streaming_depth`. When mapping publishes an update the
+    carry is re-anchored to its keyframe's new pose on the card.
+
+The map lives in MapStore on the host (numpy) under `map_lock` (an RLock):
+the threads take it for snapshots and write-backs, never across an upload,
+a dispatch or a pull. Per-frame compute runs on the device: a steady frame
+is ONE replay of a graphed core (`tracking_loop.make_pipeline_track_core`,
+or `make_streaming_track_core` when streaming: extraction, projection
+matching with the wide-radius retry, pose LM) and ONE pull of its
+bookkeeping fields (none on the caller's thread when streaming); the
+frame's descriptor bits stay on the device unless it becomes a keyframe.
+The padded local map is uploaded once per map epoch (`map.version`, the
+reference keyframe) and cached. Frames before initialization and the
+fallback chain (reference-keyframe matching, then relocalization without a
+vocabulary, then LOST) run eagerly; so does the mapping job
+(triangulation, fusion, point statistics, local BA, culling).
 
 Uploads go through pinned host memory and never wait for the device; each
-pull copies into pinned memory and waits once. The two RANSAC solvers draw
-from one `torch.Generator` seeded with `seed`, where the reference splits
+pull copies into pinned memory and waits once, on the calling thread's
+stream. Tensors a tracked frame made and the worker reads (a keyframe's
+feature payload) carry the event recorded after them: the worker's stream
+waits on it and records its use, so the caching allocator cannot hand the
+memory out again before the worker is done. On the card the cores a mode
+replays are captured at the first frame's shapes BEFORE the threads start
+(`cuda_graph.py`: no capture beside them). The two RANSAC solvers draw from
+one `torch.Generator` seeded with `seed`, where the reference splits
 `jax.random` keys: the port picks other hypotheses than the reference, so
 the two are held to each other by outcome, not bit for bit.
 
-Not ported here: async mapping and streaming (`async_mapping=True`,
-`streaming=True`), a vocabulary (BoW relocalization and loop closing) and the
+Not copied from the reference (its faults): the unlocked swap of the
+pending BA (`_ba_lock`: a solve is applied exactly once), the
+deferred-descriptor race (the handle is read once, the write-back only
+fills a missing block, both under `map_lock`), a deferred write-back onto
+a point slot culled and reused meanwhile (`MapStore.pt_gen`, compared with
+the solve's snapshot), and `map_lock` held across fusion's uploads and
+dispatch.
+
+Not ported here: a vocabulary (BoW relocalization and loop closing) and the
 post-loop global BA; each raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from viorb_tpu_torch import cuda_graph
 from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.features.matching import (
@@ -57,15 +96,12 @@ from viorb_tpu_torch.slam.kernels import (
     triangulate_between,
     unpack_local_map,
 )
-from viorb_tpu_torch.slam.tracking_loop import make_pipeline_track_core
+from viorb_tpu_torch.slam.tracking_loop import TrackCarry, make_pipeline_track_core, make_streaming_track_core
 from viorb_tpu_torch.solvers.pnp import pnp_ransac
 from viorb_tpu_torch.solvers.two_view import two_view_init
 
-_NOT_PORTED = {
-    "async_mapping": "async mapping (the mapping worker thread) is not ported yet: use async_mapping=False",
-    "streaming": "streaming (the collector thread) is not ported yet: use streaming=False",
-    "vocabulary": "a vocabulary (BoW relocalization, loop closing) is not ported yet: use vocabulary=None",
-}
+_NOT_PORTED = "a vocabulary (BoW relocalization, loop closing) is not ported yet: use vocabulary=None"
+_PAYLOAD = ("xy", "level", "valid", "desc01", "desc_pm1")  # a keyframe's device payload
 
 
 @dataclass
@@ -89,6 +125,13 @@ class FrameRecord:
     xy_dev: Optional[torch.Tensor] = None
     level_dev: Optional[torch.Tensor] = None
     valid_dev: Optional[torch.Tensor] = None
+    # recorded on the producing stream after the device tensors above (async
+    # mode on the card): another thread's stream waits on it before reading them
+    ready: Optional[torch.cuda.Event] = None
+    # (reference keyframe id, r_rel, t_rel, map version) as the trajectory
+    # recorded the frame: async mode re-bases the frame on its keyframe's
+    # later pose (MonoSlam._rebase_last_frame)
+    ref: Optional[Tuple[int, np.ndarray, np.ndarray, int]] = None
 
     def host_desc01(self) -> np.ndarray:
         if self.desc01 is None:
@@ -97,10 +140,14 @@ class FrameRecord:
 
 
 class MonoSlam:
-    """Vision-only monocular SLAM, lock-step (the reference's System facade
-    for TrackMonocular). `device=None` is the card
-    (`viorb_tpu_torch.default_device()`, which raises without one);
-    `device="cpu"` runs every device function's plain version eagerly."""
+    """Vision-only monocular SLAM (the reference's System facade for
+    TrackMonocular), lock-step, async or streaming (module docstring).
+    `device=None` is the card (`viorb_tpu_torch.default_device()`, which
+    raises without one); `device="cpu"` runs every device function's plain
+    version eagerly, with the same threads. Call `shutdown()` after a
+    threaded run. On the card every frame of a threaded run must have the
+    first frame's shape and dtype: its cores are captured before the
+    threads start."""
 
     def __init__(
         self,
@@ -114,13 +161,13 @@ class MonoSlam:
         vocabulary=None,
         async_mapping: bool = False,
         streaming: bool = False,
+        streaming_depth: int = 2,
         device=None,
     ):
-        for name, value in (("async_mapping", async_mapping), ("streaming", streaming),
-                            ("vocabulary", vocabulary is not None)):
-            if value:
-                raise NotImplementedError(_NOT_PORTED[name])
+        if vocabulary is not None:
+            raise NotImplementedError(_NOT_PORTED)
         self.device = resolve_device(device)
+        self._on_card = self.device.type == "cuda"
         self.cam = cam
         self.extractor = OrbExtractor(n_features=n_features)
         self.map = MapStore()
@@ -145,9 +192,10 @@ class MonoSlam:
         self.n_tracked = 0
         self.sigma2 = self.extractor.level_sigma2()
         self._sigma2_dev = self._up(self.sigma2)
-        # the graphed tracking core (built lazily) + the device copy of the
+        # the graphed tracking cores (built lazily) + the device copy of the
         # padded local map, cached per map epoch
         self._track_core = None
+        self._stream_core = None
         self._lm_cache = None
         # kf_id -> device payload (immutable per-KF feature tensors)
         self._kf_dev: dict = {}
@@ -156,15 +204,60 @@ class MonoSlam:
         # System::ActivateLocalizationMode -> Tracking::mbOnlyTracking)
         self.localization_only = False
         # host-clock ms of each mapping job's phases, in order of the jobs
+        # (on the worker's clock when async)
         self.job_times: List[Dict[str, float]] = []
+
+        # async mapping (the reference's LocalMapping thread)
+        self.async_mapping = async_mapping or streaming
+        self.map_lock = threading.RLock()
+        self._ba_skips = 0
+        self._mapping_queue: "queue.Queue[Optional[int]]" = queue.Queue()
+        # the deferred local-BA write-back: (its arrays, the solve's device
+        # tensors, their event); swapped out and applied under _ba_lock, so a
+        # solve is applied exactly once and a flush returns only after a
+        # write-back in progress has finished
+        self._pending_ba = None
+        self._ba_lock = threading.Lock()
+        self._worker: Optional[threading.Thread] = None
+        self._worker_error: Optional[BaseException] = None
+        self._worker_stream: Optional[torch.cuda.Stream] = None
+        self._threads_registered = 0  # cuda_graph.register_thread() calls to undo at shutdown
+        # streaming: the caller's thread dispatches, a collector thread
+        # keeps the books (module docstring)
+        self.streaming = streaming
+        # streaming dispatch blocks while this many mapping jobs are
+        # unfinished (2: one job runs while the next waits, and the map stays
+        # at most one keyframe interval behind)
+        self.mapping_backlog_limit = 2
+        # (anchor kf id, r_cw, t_cw, map version) the carry is aligned to
+        self._carry_anchor = None
+        # re-anchors applied: (|d_t|, max |d_R - I|)
+        self.carry_deltas: List[Tuple[float, float]] = []
+        # frames in flight at most: bounds device memory and the bookkeeping
+        # lag (a keyframe decision arrives at most this many frames late)
+        self.streaming_depth = streaming_depth
+        self._dev_carry: Optional[TrackCarry] = None
+        self._stream_q: list = []  # in flight: (ts, core outputs, point ids, host fields, event)
+        self._stream_cv = threading.Condition()
+        self._stream_stop = False
+        self._stream_fail_count = 0
+        self._stream_weak_count = 0
+        self._stream_failed = False
+        self._collector: Optional[threading.Thread] = None
+        self._collector_error: Optional[BaseException] = None
+        self.collector_waits = 0  # the collector's host waits: one per batch of frames
+        # host ms each dispatched frame spent blocked in the backlog and depth gates
+        self.gate_ms: List[float] = []
+        self._last_info = {"state": self.state, "n_tracked": 0, "n_kfs": 0, "n_points": 0}
 
     # -- host <-> device ---------------------------------------------------
 
     def _up(self, a, dtype=None) -> torch.Tensor:
-        """A numpy array (or number) on the device, C order. On the card the
-        copy goes through pinned memory and does not wait for the device."""
+        """A numpy array (or number) on the device, C order, on the calling
+        thread's stream. On the card the copy goes through pinned memory and
+        does not wait for the device."""
         t = torch.from_numpy(np.ascontiguousarray(a, dtype))
-        if self.device.type != "cuda":
+        if not self._on_card:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
@@ -172,21 +265,44 @@ class MonoSlam:
         image = torch.as_tensor(image)
         if image.device == self.device:
             return image
-        if self.device.type == "cuda" and image.device.type == "cpu":
+        if self._on_card and image.device.type == "cpu":
             return image.contiguous().pin_memory().to(self.device, non_blocking=True)
         return image.to(self.device)
 
-    def _pull(self, *tensors: torch.Tensor) -> List[np.ndarray]:
-        """The tensors as numpy arrays with ONE wait for the device: each is
-        copied into pinned memory without blocking, then the stream is
-        synchronized once."""
-        if self.device.type != "cuda":
-            return [t.detach().numpy().copy() for t in tensors]
+    def _pull_start(self, tensors) -> Tuple[List[np.ndarray], Optional[torch.cuda.Event]]:
+        """Start copying the tensors into pinned host memory without
+        waiting: (numpy views that hold the bytes once the event has
+        completed, that event). On the CPU: copies, and no event."""
+        if not self._on_card:
+            return [t.detach().numpy().copy() for t in tensors], None
         outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
         for o, t in zip(outs, tensors):
             o.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return [o.numpy() for o in outs]
+        done = torch.cuda.Event()
+        done.record()
+        return [o.numpy() for o in outs], done
+
+    def _pull(self, *tensors: torch.Tensor, after: Optional[torch.cuda.Event] = None) -> List[np.ndarray]:
+        """The tensors as numpy arrays with ONE wait: each is copied into
+        pinned memory without blocking, then the calling thread's stream is
+        synchronized once. `after`: an event of another stream the tensors
+        were made on, which the copies wait for."""
+        if self._on_card and after is not None:
+            torch.cuda.current_stream(self.device).wait_event(after)
+        host, _ = self._pull_start(tensors)
+        if self._on_card:
+            torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def _record_ready(self) -> Optional[torch.cuda.Event]:
+        """An event behind the work queued so far on the calling thread's
+        stream, for another thread's stream to wait on (async mode on the
+        card; None otherwise)."""
+        if not (self._on_card and self.async_mapping):
+            return None
+        ready = torch.cuda.Event()
+        ready.record()
+        return ready
 
     # -- frames ------------------------------------------------------------
 
@@ -209,13 +325,33 @@ class MonoSlam:
             xy_dev=xy_und,
             level_dev=feats.level,
             valid_dev=feats.valid,
+            ready=self._record_ready(),
         )
 
     def process_frame(self, image, ts: float) -> dict:
         """Track one frame (an (H,W) uint8 or f32 image: array or tensor)
-        and, when it becomes a keyframe, run the mapping job. Returns the
-        state, the tracked-point count and the map's keyframe and point
-        counts."""
+        and, when it becomes a keyframe, run the mapping job (lock-step) or
+        queue it (async). Returns the state, the tracked-point count and the
+        map's keyframe and point counts; when streaming, the counts as the
+        collector last left them, and `queued`, the frames in flight."""
+        if self.async_mapping and self._worker is None:
+            self._start_threads(image)
+        if self.streaming:
+            return self._process_frame_streaming(image, ts)
+        return self._process_frame_once(image, ts)
+
+    def _info(self) -> dict:
+        with self.map_lock:
+            return {
+                "state": self.state,
+                "n_tracked": self.n_tracked,
+                "n_kfs": len(self.map.kf_ids()),
+                "n_points": len(self.map.active_point_ids()),
+            }
+
+    def _process_frame_once(self, image, ts: float) -> dict:
+        if self.async_mapping:
+            self._rebase_last_frame()
         if (
             self.state != "NOT_INITIALIZED"
             and self.last_frame is not None
@@ -234,12 +370,315 @@ class MonoSlam:
                 self.n_tracked = 0
         self._record_trajectory(fr, ts)
         self.last_frame = fr
-        return {
-            "state": self.state,
-            "n_tracked": self.n_tracked,
-            "n_kfs": len(self.map.kf_ids()),
-            "n_points": len(self.map.active_point_ids()),
-        }
+        return self._info()
+
+    def _rebase_last_frame(self):
+        """ORB-SLAM's Tracking::UpdateLastFrame: after a BA write-back moved
+        the last frame's reference keyframe, the frame's pose becomes its
+        recorded pose relative to that keyframe composed with the
+        keyframe's current pose, so the motion model predicts in the
+        corrected map. Lock-step mode needs none (the job finishes before
+        the next frame and the keyframe frame takes its refined pose); the
+        reference's async mode has none, its streaming mode re-anchors its
+        carry the same way (`_reanchor_carry`)."""
+        last = self.last_frame
+        if last is None or last.ref is None:
+            return
+        kf_id, r_rel, t_rel, version = last.ref
+        with self.map_lock:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is None or self.map.version == version:
+                return
+            last.r_cw = normalize_np(r_rel @ kf.r_cw)
+            last.t_cw = (r_rel @ kf.t_cw + t_rel).astype(np.float32)
+            last.ref = (kf_id, r_rel, t_rel, self.map.version)
+
+    # -- threads -------------------------------------------------------------
+
+    def _start_threads(self, image):
+        """Start the mapping worker (and the collector when streaming). On
+        the card, first capture the cores this mode replays at the shapes of
+        `image` and of the padded local map: no capture may run beside the
+        threads (cuda_graph.py)."""
+        if self._on_card:
+            img = self._image(image)
+            eye = self._up(np.eye(3, dtype=np.float32))
+            zero = self._up(np.zeros(3, np.float32))
+            packed, bits, valid = self._point_payload(np.zeros(0, np.int64))
+            dmap = unpack_local_map(self._up(packed), self._up(bits), self._up(valid))
+            if self._track_core is None:
+                self._track_core = make_pipeline_track_core(self.cam, self.extractor)
+            self._track_core.prepare(img, eye, zero, *dmap)
+            if self.streaming:
+                if self._stream_core is None:
+                    self._stream_core = make_streaming_track_core(self.cam, self.extractor)
+                self._stream_core.prepare(TrackCarry(eye, zero, eye, zero), img, *dmap)
+            # the worker's stream starts after what this thread queued so far
+            # (the level variances, the first frame's uploads)
+            self._worker_stream = torch.cuda.Stream(self.device)
+            self._worker_stream.wait_stream(torch.cuda.current_stream(self.device))
+        threads = [threading.Thread(target=self._mapping_worker, name="viorb-mapping", daemon=True)]
+        if self.streaming:
+            threads.append(threading.Thread(target=self._collector_loop, name="viorb-collector", daemon=True))
+        for t in threads:
+            if self._on_card:
+                cuda_graph.register_thread()
+                self._threads_registered += 1
+            t.start()
+        self._worker = threads[0]
+        self._collector = threads[1] if self.streaming else None
+
+    def shutdown(self):
+        """Stop the collector and the mapping worker (reference
+        System::Shutdown); in-flight frames are collected first. Leaves
+        `_worker` and `_collector` None."""
+        if self._collector is not None:
+            with self._stream_cv:
+                self._stream_stop = True
+                self._stream_cv.notify_all()
+            self._join(self._collector)
+            self._collector = None
+        if self._worker is not None:
+            self._mapping_queue.put(None)
+            self._join(self._worker)
+            self._worker = None
+        for _ in range(self._threads_registered):
+            cuda_graph.unregister_thread()
+        self._threads_registered = 0
+
+    @staticmethod
+    def _join(thread: threading.Thread):
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise RuntimeError(f"{thread.name} did not stop within 60 s")
+
+    def wait_mapping_idle(self):
+        """Block until the stream and the mapping queue drain and the last
+        deferred BA is written back (a no-op in lock-step mode). The
+        reference's bLocalMapAcceptKF lock-step wait."""
+        self.flush_stream()
+        if self.async_mapping:
+            self._mapping_queue.join()
+            self._flush_pending_ba()
+            if self._worker_error is not None:
+                raise RuntimeError("mapping worker died") from self._worker_error
+
+    def _mapping_worker(self):
+        """The worker thread: one mapping job at a time from the queue, every
+        device function of it on the worker's own stream."""
+        on_stream = torch.cuda.stream(self._worker_stream) if self._worker_stream is not None else nullcontext()
+        with on_stream:
+            while True:
+                kf_id = self._mapping_queue.get()
+                try:
+                    if kf_id is None:
+                        return
+                    self._mapping_job(kf_id)
+                except Exception as e:  # surfaced by the next insertion or wait
+                    self._worker_error = e
+                finally:
+                    self._mapping_queue.task_done()
+                # write the job's deferred BA back right away, AFTER
+                # task_done: the backlog gate releases at the job boundary
+                # while the BA drains in the worker's idle gap
+                try:
+                    self._flush_pending_ba()
+                except Exception as e:
+                    self._worker_error = e
+
+    # -- streaming -------------------------------------------------------------
+
+    def _process_frame_streaming(self, image, ts: float) -> dict:
+        """Dispatch-only frame entry: the streaming core runs with the pose
+        carry on the card; host bookkeeping happens on the collector thread.
+        Initialization, relocalization and a failed stream go through the
+        synchronous path, with the stream flushed first."""
+        if self._collector_error is not None:
+            raise RuntimeError("collector died") from self._collector_error
+        steady = self.state != "NOT_INITIALIZED" and not self._stream_failed and self._dev_carry is not None
+        if not steady:
+            self.flush_stream()
+            if self._stream_failed:
+                # frames failed in flight: the last good frame is several
+                # frames old, so the per-frame velocity no longer applies
+                self.velocity = None
+            self._stream_failed = False
+            self._stream_fail_count = 0
+            self._stream_weak_count = 0
+            info = self._process_frame_once(image, ts)
+            if self.state == "OK" and self.last_frame is not None and self.last_frame.r_cw is not None:
+                self._seed_stream_carry()
+            self._last_info = info
+            return info
+        if self._stream_core is None:
+            self._stream_core = make_streaming_track_core(self.cam, self.extractor)
+        # overload guard: while the worker is `mapping_backlog_limit` jobs
+        # behind, block (degrade toward lock-step) rather than race ahead of
+        # the map
+        t_gate = time.perf_counter()
+        deadline = time.monotonic() + 30.0
+        while (
+            self._mapping_queue.unfinished_tasks >= self.mapping_backlog_limit
+            and self._worker_error is None
+            and time.monotonic() < deadline
+        ):
+            time.sleep(0.002)
+        gate_s = time.perf_counter() - t_gate
+        pts, dmap = self._device_local_map()
+        self._reanchor_carry()
+        carry, outs = self._stream_core(self._dev_carry, self._image(image), *dmap)
+        self._dev_carry = carry
+        feats = outs[0]
+        # the copies of the ten bookkeeping fields start NOW, behind one
+        # event (the counterpart of the reference's copy_to_host_async)
+        host, ready = self._pull_start(
+            (outs[1], feats.level, feats.angle, feats.valid, outs[3], outs[4], outs[5], outs[6], outs[7], outs[8])
+        )
+        # adaptive depth: at low confidence every lagged frame costs
+        # accuracy, so run at depth 1 until tracking is solid again
+        depth = self.streaming_depth if self.n_tracked >= 24 else 1
+        t_gate = time.perf_counter()
+        with self._stream_cv:
+            while len(self._stream_q) >= depth and self._collector_error is None:
+                self._stream_cv.wait(timeout=1.0)
+            self.gate_ms.append((gate_s + time.perf_counter() - t_gate) * 1e3)
+            self._stream_q.append((ts, outs, pts, host, ready))
+            self._stream_cv.notify_all()
+            queued = len(self._stream_q)
+        return dict(self._last_info, queued=queued)
+
+    def _reanchor_carry(self):
+        """Keep the carry's pose RELATIVE to its keyframe across a published
+        map update (BA moves the keyframe): T_f' = T_f o (T_kf_old^-1 o
+        T_kf_new), applied on the card from the host delta, no sync. The
+        streaming counterpart of the lock-step post-BA frame resync."""
+        delta = None
+        with self.map_lock:
+            anchor, ver = self._carry_anchor, self.map.version
+            if anchor is not None and anchor[3] != ver:
+                akf = self.map.keyframes.get(anchor[0])
+                if akf is not None:
+                    r_old, t_old = anchor[1], anchor[2]
+                    d_r = r_old.T @ akf.r_cw
+                    d_t = r_old.T @ (akf.t_cw - t_old)
+                    if np.abs(d_t).max() > 1e-7 or np.abs(d_r - np.eye(3)).max() > 1e-7:
+                        delta = d_r, d_t
+                        self.carry_deltas.append((float(np.linalg.norm(d_t)), float(np.abs(d_r - np.eye(3)).max())))
+                        del self.carry_deltas[:-256]
+            kf = self.map.keyframes.get(self.last_kf_id)
+            if kf is not None:
+                self._carry_anchor = (self.last_kf_id, kf.r_cw.copy(), kf.t_cw.copy(), ver)
+        if delta is not None:
+            c = self._dev_carry
+            d_r, d_t = self._up(delta[0], np.float32), self._up(delta[1], np.float32)
+            self._dev_carry = TrackCarry(c.r_cw @ d_r, c.r_cw @ d_t + c.t_cw, c.vel_r, c.vel_t)
+
+    def _seed_stream_carry(self):
+        last = self.last_frame
+        if self.velocity is not None:
+            vr, vt = self.velocity
+        else:
+            vr, vt = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        self._dev_carry = TrackCarry(
+            self._up(last.r_cw, np.float32), self._up(last.t_cw, np.float32),
+            self._up(vr, np.float32), self._up(vt, np.float32),
+        )
+        with self.map_lock:
+            kf = self.map.keyframes.get(self.last_kf_id)
+            self._carry_anchor = (
+                None if kf is None else (self.last_kf_id, kf.r_cw.copy(), kf.t_cw.copy(), self.map.version)
+            )
+
+    def flush_stream(self):
+        """Block until every in-flight streamed frame has been collected (a
+        no-op outside streaming mode)."""
+        if self._collector is None:
+            return
+        with self._stream_cv:
+            while self._stream_q and self._collector_error is None:
+                self._stream_cv.wait(timeout=1.0)
+        if self._collector_error is not None:
+            raise RuntimeError("collector died") from self._collector_error
+
+    def _collector_loop(self):
+        while True:
+            with self._stream_cv:
+                while not self._stream_q and not self._stream_stop:
+                    self._stream_cv.wait()
+                if self._stream_stop and not self._stream_q:
+                    return
+                batch = list(self._stream_q)
+            try:
+                self._collect_batch(batch)
+            except Exception as e:  # surfaced by the next dispatch or flush
+                self._collector_error = e
+            with self._stream_cv:
+                del self._stream_q[: len(batch)]
+                self._stream_cv.notify_all()
+            if self._collector_error is not None:
+                return
+
+    def _collect_batch(self, batch):
+        """ONE wait for a batch of in-flight frames, on the last one's event
+        (the frames were queued in order on one stream), then the same
+        per-frame host logic as the synchronous path."""
+        last_ready = batch[-1][4]
+        if last_ready is not None:
+            last_ready.synchronize()
+            self.collector_waits += 1
+        for ts, outs, pts, host, ready in batch:
+            feats, xy_d, fdesc = outs[0], outs[1], outs[2]
+            xy, level, angle, fvalid, pf, r_new, t_new, inl, visible, ok = host
+            fr = FrameRecord(
+                timestamp=ts,
+                xy=xy,
+                level=level.astype(np.int32),
+                angle=angle,
+                desc01=None,
+                valid=fvalid,
+                desc_pm1=fdesc,
+                point_idx=np.full(xy.shape[0], -1, np.int32),
+                desc01_dev=feats.desc01,
+                xy_dev=xy_d,
+                level_dev=feats.level,
+                valid_dev=feats.valid,
+                ready=ready,
+            )
+            if not bool(ok):
+                # the device carry froze at the last good pose, so a
+                # one-frame dropout heals itself; a second failure in a row
+                # hands control back to the synchronous fallback chain
+                self._stream_fail_count += 1
+                if self._stream_fail_count >= 2:
+                    self._stream_failed = True
+                    self.state = "LOST"
+                self._last_info = dict(self._last_info, state=self.state)
+                continue
+            self._stream_fail_count = 0
+            fr.r_cw, fr.t_cw = r_new, t_new
+            self.n_tracked = int(inl.sum())
+            # weak streak: 3 accepted frames in a row under 20 inliers mean
+            # the carry is sliding off the map: fall back before it derails
+            if self.n_tracked < 20:
+                self._stream_weak_count += 1
+                if self._stream_weak_count >= 3:
+                    self._stream_failed = True
+            else:
+                self._stream_weak_count = 0
+            self.state = "OK"
+            self._count_tracked(fr, pts, pf, inl, visible)
+            self.frames_since_kf += 1
+            if self._need_new_keyframe():
+                self._insert_keyframe(fr)
+                self.frames_since_kf = 0
+                # anchor the carry to the NEW keyframe at its insertion pose:
+                # when its job publishes, the next dispatch re-anchors the
+                # carry by exactly the insertion -> BA delta
+                with self.map_lock:
+                    self._carry_anchor = (self.last_kf_id, fr.r_cw.copy(), fr.t_cw.copy(), self.map.version)
+            self._record_trajectory(fr, ts)
+            self.last_frame = fr
+            self._last_info = self._info()
 
     # -- initialization ----------------------------------------------------
 
@@ -371,11 +810,12 @@ class MonoSlam:
         re-gathered only when mapping publishes an update (map.version) or
         the reference keyframe changes, so a steady frame uploads nothing
         but the image and the predicted pose."""
-        key = (id(self.map), self.map.version, self.last_kf_id)
-        cache = self._lm_cache
-        if cache is not None and cache[0] == key:
-            return cache[1], cache[2]
-        pts, packed, bits, valid = self._gather_local_points_packed(self._local_kf_ids())
+        with self.map_lock:
+            key = (id(self.map), self.map.version, self.last_kf_id)
+            cache = self._lm_cache
+            if cache is not None and cache[0] == key:
+                return cache[1], cache[2]
+            pts, packed, bits, valid = self._gather_local_points_packed(self._local_kf_ids())
         dev = unpack_local_map(self._up(packed), self._up(bits), self._up(valid))
         self._lm_cache = (key, pts, dev)
         return pts, dev
@@ -386,23 +826,28 @@ class MonoSlam:
 
     def _seed_kf_payload(self, kf_id: int, fr: FrameRecord):
         """Register the (immutable) feature payload of a new keyframe with
-        the device tensors the tracked frame already owns: triangulation
-        and fusion then upload nothing of it."""
+        the device tensors the tracked frame already owns, and the frame's
+        event: triangulation and fusion then upload nothing of it."""
         if fr.xy_dev is None or fr.level_dev is None or fr.valid_dev is None:
             return
         desc01 = fr.desc01_dev if fr.desc01_dev is not None else self._up(fr.host_desc01())
-        self._kf_dev[kf_id] = dict(
-            xy=fr.xy_dev, level=fr.level_dev, valid=fr.valid_dev, desc01=desc01, desc_pm1=fr.desc_pm1,
-        )
-        self._trim_kf_payloads()
+        ent = dict(xy=fr.xy_dev, level=fr.level_dev, valid=fr.valid_dev, desc01=desc01, desc_pm1=fr.desc_pm1,
+                   ready=fr.ready)
+        with self.map_lock:
+            self._kf_dev[kf_id] = ent
+            self._trim_kf_payloads()
 
     def _kf_payload(self, kf_id: int) -> dict:
         """Device payload of a keyframe (xy, level, valid, desc01 u8,
-        desc_pm1 f32), uploaded once and cached."""
-        ent = self._kf_dev.get(kf_id)
+        desc_pm1 f32), uploaded once and cached. A payload another stream
+        made is first ordered after it on the calling thread's stream, and
+        its tensors are recorded as used there, so the allocator keeps them
+        until that stream's work on them is done."""
+        with self.map_lock:
+            ent = self._kf_dev.get(kf_id)
+            kf = self.map.keyframes[kf_id] if ent is None else None
         if ent is None:
-            kf = self.map.keyframes[kf_id]
-            desc01 = kf.desc01_dev if kf.desc01_dev is not None else self._up(kf.ensure_desc01())
+            desc01 = self._up(kf.ensure_desc01())
             valid = self._up(kf.valid)
             ent = dict(
                 xy=self._up(kf.xy),
@@ -411,8 +856,15 @@ class MonoSlam:
                 desc01=desc01,
                 desc_pm1=(desc01.to(torch.float32) * 2 - 1) * valid.to(torch.float32)[:, None],
             )
-            self._kf_dev[kf_id] = ent
-            self._trim_kf_payloads()
+            with self.map_lock:
+                ent = self._kf_dev.setdefault(kf_id, ent)
+                self._trim_kf_payloads()
+        ready = ent.pop("ready", None)  # the first reader orders its stream; later reads follow it
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for name in _PAYLOAD:
+                ent[name].record_stream(stream)
         return ent
 
     def _trim_kf_payloads(self):
@@ -435,6 +887,7 @@ class MonoSlam:
         feats, xy_d, fdesc, pf_d, r_d, t_d, inl_d, vis_d, _n = self._track_core(
             self._image(image), self._up(r_pred), self._up(t_pred), *dev
         )
+        ready = self._record_ready()
         xy, level, angle, fvalid, pf, r_new, t_new, inl, visible = self._pull(
             xy_d, feats.level, feats.angle, feats.valid, pf_d, r_d, t_d, inl_d, vis_d
         )
@@ -451,6 +904,7 @@ class MonoSlam:
             xy_dev=xy_d,
             level_dev=feats.level,
             valid_dev=feats.valid,
+            ready=ready,
         )
         fr.r_cw, fr.t_cw = r_pred, t_pred
         n_inl = int(inl.sum())
@@ -469,7 +923,9 @@ class MonoSlam:
         points' visible / found counters."""
         ok_feats = np.nonzero((pf >= 0) & inl)[0]
         fr.point_idx[ok_feats] = pts[pf[ok_feats]]
-        if len(pts):
+        if not len(pts):
+            return
+        with self.map_lock:
             vis = visible[: len(pts)]
             alive = self.map.pt_active[pts]
             self.map.pt_visible[pts[vis & alive[: len(vis)]]] += 1
@@ -555,14 +1011,21 @@ class MonoSlam:
     def _need_new_keyframe(self) -> bool:
         if self.localization_only or self.n_tracked <= 15:
             return False
-        ref_kf = self.map.keyframes[self.last_kf_id]
-        ref_tracked = int((ref_kf.point_idx >= 0).sum())
+        with self.map_lock:
+            ref_tracked = int((self.map.keyframes[self.last_kf_id].point_idx >= 0).sum())
         interval_hit = self.frames_since_kf >= self.kf_max_interval
         ratio_hit = (
             self.frames_since_kf >= self.kf_min_interval
             and self.n_tracked < 0.6 * max(ref_tracked, 1)
         )
-        return interval_hit or ratio_hit
+        if not (interval_hit or ratio_hit):
+            return False
+        if self.async_mapping and self._mapping_queue.unfinished_tasks >= 2:
+            # mapping saturated (2 jobs queued or running): only a twice
+            # blown interval cap inserts, so keyframe production cannot
+            # outrun the worker (the reference gates on AcceptKeyFrames())
+            return self.frames_since_kf >= 2 * self.kf_max_interval
+        return True
 
     def _match_keyframe(self, kf: KeyFrameData, fr: FrameRecord, has: np.ndarray):
         """Mutual descriptor matching of the keyframe's features `has` (with
@@ -580,10 +1043,13 @@ class MonoSlam:
         descriptor matching in place of BoW buckets)."""
         if self.last_kf_id < 0:
             return False
-        kf = self.map.keyframes.get(self.last_kf_id)
-        if kf is None:
-            return False
-        has = (kf.point_idx >= 0) & kf.valid
+        with self.map_lock:  # a snapshot: the worker may bind and move points meanwhile
+            kf = self.map.keyframes.get(self.last_kf_id)
+            if kf is None:
+                return False
+            pt_ids = kf.point_idx.copy()
+            pt_xyz = self.map.pt_xyz[np.maximum(pt_ids, 0)]
+        has = (pt_ids >= 0) & kf.valid
         if has.sum() < 15:
             return False
         res = self._match_keyframe(kf, fr, has)
@@ -596,7 +1062,7 @@ class MonoSlam:
         nf = fr.xy.shape[0]
         pts = np.zeros((nf, 3), np.float32)
         valid = np.zeros(nf, bool)
-        pts[mf] = self.map.pt_xyz[kf.point_idx[mk]]
+        pts[mf] = pt_xyz[mk]
         valid[mf] = True
         obs = PoseObs(
             points=self._up(pts), uv=fr.xy_dev,
@@ -616,7 +1082,7 @@ class MonoSlam:
             return False
         fr.r_cw, fr.t_cw = r_opt, t_opt
         feat_to_pt = np.full(nf, -1, np.int32)
-        feat_to_pt[mf] = kf.point_idx[mk]
+        feat_to_pt[mf] = pt_ids[mk]
         fr.point_idx = np.where(inl & (feat_to_pt >= 0), feat_to_pt, -1).astype(np.int32)
         self.n_tracked = int(inl.sum())
         self.state = "OK"
@@ -628,17 +1094,19 @@ class MonoSlam:
         Tracking::Relocalization, src/Tracking.cc:2127-2291). Without a
         vocabulary the candidates are the 5 keyframes with the most mutual
         descriptor matches, one batched Hamming matmul per keyframe."""
+        with self.map_lock:  # a snapshot: the worker may cull keyframes meanwhile
+            snap = {kid: (kf, kf.point_idx.copy()) for kid, kf in self.map.keyframes.items()}
         scored = []
-        for kid, kf_c in self.map.keyframes.items():
-            has_c = (kf_c.point_idx >= 0) & kf_c.valid
+        for kid, (kf_c, pt_ids) in snap.items():
+            has_c = (pt_ids >= 0) & kf_c.valid
             if has_c.sum() < 15:
                 continue
             res_c = self._match_keyframe(kf_c, fr, has_c)
             scored.append((kid, int((res_c.idx >= 0).sum())))
         cands = sorted(scored, key=lambda x: -x[1])[:5]
         for cand_id, _score in cands:
-            kf = self.map.keyframes.get(cand_id)
-            has = (kf.point_idx >= 0) & kf.valid
+            kf, pt_ids = snap[cand_id]
+            has = (pt_ids >= 0) & kf.valid
             (idx,) = self._pull(self._match_keyframe(kf, fr, has).idx)
             mk = np.nonzero(idx >= 0)[0]
             if len(mk) < 15:
@@ -647,7 +1115,8 @@ class MonoSlam:
             nf = fr.xy.shape[0]
             pts = np.zeros((nf, 3), np.float32)
             valid = np.zeros(nf, bool)
-            pts[mf] = self.map.pt_xyz[kf.point_idx[mk]]
+            with self.map_lock:
+                pts[mf] = self.map.pt_xyz[pt_ids[mk]]
             valid[mf] = True
             pts_d = self._up(pts)
             out = pnp_ransac(pts_d, fr.xy_dev, self._up(valid), self.cam, self.generator)
@@ -668,25 +1137,36 @@ class MonoSlam:
     # -- mapping -------------------------------------------------------------
 
     def _insert_keyframe(self, fr: FrameRecord):
-        """Create the keyframe, register its tracked observations, run the
-        mapping job, and resync the frame to the keyframe's refined pose."""
-        kf_id = self.map.add_keyframe(self._kf_from_frame(fr))
-        for f in np.nonzero(fr.point_idx >= 0)[0]:
-            p = int(fr.point_idx[f])
-            if self.map.pt_active[p]:
-                self.map.add_observation(p, kf_id, int(f))
+        """Create the keyframe and register its tracked observations, then
+        either run the mapping job and resync the frame to the keyframe's
+        refined pose (lock-step) or hand the job to the worker (async)."""
+        kf = self._kf_from_frame(fr)
+        with self.map_lock:
+            kf_id = self.map.add_keyframe(kf)
+            for f in np.nonzero(fr.point_idx >= 0)[0]:
+                p = int(fr.point_idx[f])
+                if self.map.pt_active[p]:
+                    self.map.add_observation(p, kf_id, int(f))
         self._seed_kf_payload(kf_id, fr)
         self.last_kf_id = kf_id
+        if self.async_mapping:
+            if self._worker_error is not None:
+                raise RuntimeError("mapping worker died") from self._worker_error
+            self._mapping_queue.put(kf_id)
+            return
         self._mapping_job(kf_id)
-        kf_ = self.map.keyframes[kf_id]
-        fr.r_cw, fr.t_cw = kf_.r_cw.copy(), kf_.t_cw.copy()
+        with self.map_lock:
+            kf_ = self.map.keyframes[kf_id]
+            fr.r_cw, fr.t_cw = kf_.r_cw.copy(), kf_.t_cw.copy()
 
     def _mapping_job(self, kf_id: int):
-        """The LocalMapping step for one keyframe: triangulation + fusion
-        (dispatched together, drained with ONE pull), point statistics,
-        windowed BA, culling. Appends its phases' host-clock ms to
+        """The LocalMapping step for one keyframe: the previous job's
+        deferred BA written back, triangulation + fusion (dispatched
+        together, drained with ONE pull), point statistics, windowed BA
+        (deferred when async), culling. Appends its phases' host-clock ms to
         `job_times` (a dispatch returns before the device finishes; the
         pull waits for what is left)."""
+        self._flush_pending_ba()
         times = {}
         t0 = tick = time.perf_counter()
 
@@ -696,15 +1176,19 @@ class MonoSlam:
             times[name] = (now - tick) * 1e3
             tick = now
 
-        cov = self.map.covisibility_weights(kf_id)
-        # spanning-tree parent: older KF with max shared observations
-        # (reference attaches mpParent at LocalMapping acceptance)
-        older = {k: w for k, w in cov.items() if k < kf_id and k in self.map.keyframes}
-        if older:
-            self.map.keyframes[kf_id].parent_kf = max(older, key=older.get)
-        else:
-            prior = [k for k in self.map.keyframes if k < kf_id]
-            self.map.keyframes[kf_id].parent_kf = max(prior, default=-1)
+        with self.map_lock:
+            if kf_id not in self.map.keyframes:
+                return
+            cov = self.map.covisibility_weights(kf_id)
+            # spanning-tree parent: older KF with max shared observations
+            # (reference attaches mpParent at LocalMapping acceptance)
+            older = {k: w for k, w in cov.items() if k < kf_id and k in self.map.keyframes}
+            if older:
+                self.map.keyframes[kf_id].parent_kf = max(older, key=older.get)
+            else:
+                prior = [k for k in self.map.keyframes if k < kf_id]
+                self.map.keyframes[kf_id].parent_kf = max(prior, default=-1)
+        self._kf_payload(kf_id)  # orders this stream after the tracked frame's tensors
         neighbors = sorted(cov, key=cov.get, reverse=True)[:3]
         # triangulation (CreateNewMapPoints) and fusion (SearchInNeighbors)
         # dispatched back to back, ONE pull for both. Fusion runs on the
@@ -715,41 +1199,51 @@ class MonoSlam:
         fuse_launches, _own, nb_pts = self._fuse_batch_dispatch(kf_id, neighbors)
         lap("fusion")
         self._pull_and_merge(kf_id, tri_launches, fuse_launches, lap)
-        touched = self.map.local_map_points([kf_id])
-        if len(nb_pts):
-            touched = np.unique(np.concatenate([touched, nb_pts]))
-        self.map.update_point_stats(touched[self.map.pt_active[touched]])
+        with self.map_lock:
+            touched = self.map.local_map_points([kf_id])
+            if len(nb_pts):
+                touched = np.unique(np.concatenate([touched, nb_pts]))
+            self.map.update_point_stats(touched[self.map.pt_active[touched]])
         window = [kf_id] + sorted(cov, key=cov.get, reverse=True)[: self.local_window - 1]
         lap("stats")
         self._mapping_ba(window)
         lap("ba")
-        self._cull_points()
-        self._cull_keyframes(window)
+        with self.map_lock:
+            self._cull_points()
+            self._cull_keyframes(window)
+            self.map.version += 1
         lap("culling")
-        self.map.version += 1
         times["total"] = (time.perf_counter() - t0) * 1e3
         self.job_times.append(times)
 
     def _pull_and_merge(self, kf_id: int, tri_launches, fuse_launches, lap=lambda name: None):
         """ONE pull for dispatched triangulations and fusions (and the
         keyframe's deferred descriptor block), then the merges in dispatch
-        order; `lap("pull")` and `lap("merge")` mark the two phases."""
-        kf = self.map.keyframes[kf_id]
-        deferred = kf.desc01 is None
+        order under the map lock; `lap("pull")` and `lap("merge")` mark the
+        two phases. The descriptor handle is read once, and the pulled block
+        fills the keyframe only if no other thread filled it meanwhile."""
+        with self.map_lock:
+            kf = self.map.keyframes.get(kf_id)
+            handle = None if kf is None else kf.desc01_dev
+            deferred = kf is not None and kf.desc01 is None and handle is not None
         pulls = [x for _, out in tri_launches for x in out] + [pf for _, pf, _ in fuse_launches]
         if deferred:
-            pulls.append(kf.desc01_dev)
+            pulls.append(handle)
         pulled = self._pull(*pulls)
         lap("pull")
-        if deferred:
-            kf.desc01 = pulled.pop()
-            kf.desc01_dev = None
-        dsc1 = kf.ensure_desc01()
-        for n, (nb_id, _) in enumerate(tri_launches):
-            idx, X, good = pulled[3 * n : 3 * n + 3]
-            self._tri_merge_pair(kf_id, nb_id, idx, X, good, dsc1)
-        for (ids, _, target), pf in zip(fuse_launches, pulled[3 * len(tri_launches):]):
-            self._fuse_apply(ids, pf, target)
+        with self.map_lock:
+            if deferred:
+                block = pulled.pop()
+                if kf.desc01 is None:
+                    kf.desc01 = block
+                kf.desc01_dev = None
+            dsc1 = None if kf is None else kf.desc01
+            if dsc1 is not None:
+                for n, (nb_id, _) in enumerate(tri_launches):
+                    idx, X, good = pulled[3 * n : 3 * n + 3]
+                    self._tri_merge_pair(kf_id, nb_id, idx, X, good, dsc1)
+            for (ids, _, target), pf in zip(fuse_launches, pulled[3 * len(tri_launches):]):
+                self._fuse_apply(ids, pf, target)
         lap("merge")
 
     def _triangulate_batch(self, kf_id: int, nb_ids: List[int]):
@@ -763,24 +1257,32 @@ class MonoSlam:
         touched."""
         launches, own, nb_pts = self._fuse_batch_dispatch(kf_id, neighbors)
         self._pull_and_merge(kf_id, [], launches)
-        touched = np.unique(np.concatenate([own, nb_pts]) if len(nb_pts) else own)
-        self.map.update_point_stats(touched[self.map.pt_active[touched]])
+        with self.map_lock:
+            touched = np.unique(np.concatenate([own, nb_pts]) if len(nb_pts) else own)
+            self.map.update_point_stats(touched[self.map.pt_active[touched]])
 
     def _mapping_ba(self, window: List[int]):
-        """Windowed local BA with outside-window anchors fixed."""
-        # fixed anchors: KFs observing window points but outside the window
-        anchor = set()
-        for p in self.map.local_map_points(window):
-            for k in self.map.obs_kf[p]:
-                if k >= 0 and int(k) not in window:
-                    anchor.add(int(k))
+        """Windowed local BA with outside-window anchors fixed. Async: skipped
+        while a newer keyframe waits (the reference's BA abort), at most
+        twice in a row, and its write-back deferred."""
+        with self.map_lock:
+            # fixed anchors: KFs observing window points but outside the window
+            anchor = set()
+            for p in self.map.local_map_points(window):
+                for k in self.map.obs_kf[p]:
+                    if k >= 0 and int(k) not in window:
+                        anchor.add(int(k))
         fixed = sorted(anchor)[:8]
         if not fixed:
             # no outside-window anchors (early map): pin the oldest window
             # keyframe or the solve is GAUGE-FREE and each run moves the
             # whole world a little
             fixed = [min(window)]
-        self._local_ba(window, fixed)
+        if self.async_mapping and not self._mapping_queue.empty() and self._ba_skips < 2:
+            self._ba_skips += 1
+            return
+        self._ba_skips = 0
+        self._local_ba(window, fixed, defer=self.async_mapping)
 
     def _tri_dispatch(self, kf_id: int, nb_ids: List[int]):
         """Dispatch triangulation for every worthwhile pair; the feature
@@ -803,7 +1305,8 @@ class MonoSlam:
         return launches
 
     def _tri_merge_pair(self, kf_id, nb_id, idx, X, good, dsc1):
-        """Merge one pulled triangulation result into the map."""
+        """Merge one pulled triangulation result into the map (under the
+        caller's map lock)."""
         if not good.any():
             return
         kf = self.map.keyframes.get(kf_id)
@@ -821,48 +1324,33 @@ class MonoSlam:
         )
 
     def _triangulation_snapshot(self, kf_id: int, nb_id: int):
-        """One keyframe pair's poses + free masks (baseline gate included);
-        None when the pair is not worth triangulating."""
-        kf = self.map.keyframes.get(kf_id)
-        nb = self.map.keyframes.get(nb_id)
-        if kf is None or nb is None:
-            return None
-        baseline = np.linalg.norm(kf.center() - nb.center())
-        pts_nb = nb.point_idx[nb.point_idx >= 0]
-        if len(pts_nb) > 0:
-            depths = (self.map.pt_xyz[pts_nb] @ nb.r_cw.T + nb.t_cw)[:, 2]
-            med = np.median(depths[depths > 0]) if (depths > 0).any() else 1.0
-            if baseline / max(med, 1e-6) < 0.01:
+        """One keyframe pair's poses + free masks (baseline gate included),
+        copied under the map lock; None when the pair is not worth
+        triangulating."""
+        with self.map_lock:
+            kf = self.map.keyframes.get(kf_id)
+            nb = self.map.keyframes.get(nb_id)
+            if kf is None or nb is None:
                 return None
-        free1 = kf.valid & (kf.point_idx < 0)
-        free2 = nb.valid & (nb.point_idx < 0)
-        if free1.sum() == 0 or free2.sum() == 0:
-            return None
-        return kf.r_cw, kf.t_cw, free1, nb.r_cw, nb.t_cw, free2
-
-    def _fuse_dispatch(self, pt_ids, target_id: int, radius: float, payload, row_of):
-        """Dispatch fusion's projection matching for one (points, keyframe)
-        pair against the job's union payload; returns (pt_ids, device
-        point_for_feat) or None."""
-        kf = self.map.keyframes.get(target_id)
-        if kf is None or len(pt_ids) == 0:
-            return None
-        cap = self.max_local_points
-        pt_ids = pt_ids[:cap]
-        sel = np.full(cap, -1, np.int32)
-        sel[: len(pt_ids)] = row_of[pt_ids]
-        pay = self._kf_payload(target_id)
-        point_for_feat, _, _n, _ = fuse_match_gathered(
-            *payload, self._up(sel, np.int64), self._up(kf.r_cw), self._up(kf.t_cw),
-            pay["xy"], pay["desc_pm1"], pay["valid"], self.cam, radius,
-        )
-        return pt_ids, point_for_feat
+            baseline = np.linalg.norm(kf.center() - nb.center())
+            pts_nb = nb.point_idx[nb.point_idx >= 0]
+            if len(pts_nb) > 0:
+                depths = (self.map.pt_xyz[pts_nb] @ nb.r_cw.T + nb.t_cw)[:, 2]
+                med = np.median(depths[depths > 0]) if (depths > 0).any() else 1.0
+                if baseline / max(med, 1e-6) < 0.01:
+                    return None
+            free1 = kf.valid & (kf.point_idx < 0)
+            free2 = nb.valid & (nb.point_idx < 0)
+            if free1.sum() == 0 or free2.sum() == 0:
+                return None
+            return kf.r_cw.copy(), kf.t_cw.copy(), free1, nb.r_cw.copy(), nb.t_cw.copy(), free2
 
     def _fuse_apply(self, pt_ids: np.ndarray, pf: np.ndarray, target_id: int) -> int:
-        """Merge phase of Fuse: a match on a free feature becomes an
-        observation; a match on a feature bound to a DIFFERENT point merges
-        the two (the fewer-observed one dies). Alive-gated: points may have
-        died in an earlier apply of the same batch."""
+        """Merge phase of Fuse (under the caller's map lock): a match on a
+        free feature becomes an observation; a match on a feature bound to a
+        DIFFERENT point merges the two (the fewer-observed one dies).
+        Alive-gated: points may have died in an earlier apply of the same
+        batch."""
         kf = self.map.keyframes.get(target_id)
         if kf is None:
             return 0
@@ -885,75 +1373,145 @@ class MonoSlam:
         return fused
 
     def _fuse_batch_dispatch(self, kf_id: int, neighbors: List[int]):
-        """Dispatch phase of SearchInNeighbors: one union payload upload,
-        then one gather-dispatch per pair (the new KF's points into each
-        neighbor, all neighbor points into the new KF, reference
-        src/LocalMapping.cc:1487). Returns ([(pt_ids, device pf, target)],
-        the keyframe's own points, the neighbors' points)."""
-        kf = self.map.keyframes[kf_id]
-        own = kf.point_idx[kf.point_idx >= 0]
-        nb_pts = self.map.local_map_points(neighbors)
-        union = np.unique(np.concatenate([own, nb_pts])) if len(nb_pts) else own
-        union = union[: self.max_local_points]
-        packed, bits, valid = self._point_payload(union)
-        valid[: len(union)] = self.map.pt_active[union]
+        """Dispatch phase of SearchInNeighbors: the new KF's points into each
+        neighbor, all neighbor points into the new KF (reference
+        src/LocalMapping.cc:1487), as one union payload upload and one
+        gather-dispatch per pair. The map lock is held for the snapshot
+        only, never across an upload or a dispatch. Returns ([(pt_ids,
+        device pf, target)], the keyframe's own points, the neighbors'
+        points)."""
+        cap = self.max_local_points
+        with self.map_lock:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is None:
+                empty = np.zeros(0, np.int64)
+                return [], empty, empty
+            own = kf.point_idx[kf.point_idx >= 0]
+            nb_pts = self.map.local_map_points(neighbors)
+            union = np.unique(np.concatenate([own, nb_pts])) if len(nb_pts) else own
+            union = union[:cap]
+            packed, bits, valid = self._point_payload(union)
+            valid[: len(union)] = self.map.pt_active[union]
+            row_of = np.full(self.map.max_points, -1, np.int32)
+            row_of[union] = np.arange(len(union), dtype=np.int32)
+            pairs = []
+            for pt_ids, target in [(own, nb) for nb in neighbors] + [(nb_pts, kf_id)]:
+                tkf = self.map.keyframes.get(target)
+                if tkf is None or len(pt_ids) == 0:
+                    continue
+                pt_ids = pt_ids[:cap]
+                sel = np.full(cap, -1, np.int32)
+                sel[: len(pt_ids)] = row_of[pt_ids]
+                pairs.append((pt_ids, sel, tkf.r_cw.copy(), tkf.t_cw.copy(), target))
         payload = (self._up(packed), self._up(bits), self._up(valid))
-        row_of = np.full(self.map.max_points, -1, np.int32)
-        row_of[union] = np.arange(len(union), dtype=np.int32)
         launches = []
-        for pt_ids, target in [(own, nb) for nb in neighbors] + [(nb_pts, kf_id)]:
-            out = self._fuse_dispatch(pt_ids, target, 3.0, payload, row_of)
-            if out is not None:
-                launches.append((out[0], out[1], target))
+        for pt_ids, sel, r_cw, t_cw, target in pairs:
+            pay = self._kf_payload(target)
+            point_for_feat, _, _n, _ = fuse_match_gathered(
+                *payload, self._up(sel, np.int64), self._up(r_cw), self._up(t_cw),
+                pay["xy"], pay["desc_pm1"], pay["valid"], self.cam, 3.0,
+            )
+            launches.append((pt_ids, point_for_feat, target))
         return launches, own, nb_pts
 
-    def _local_ba(self, window: List[int], fixed: List[int]):
-        """Local BA over `window` with `fixed` anchors, written back to the
-        map. The pose block is the window + anchors as they are: the
-        reference pads it to a few bucketed sizes (_pose_bucket), one XLA
-        compile each; eager PyTorch compiles nothing, so padding would only
-        add work. The landmark block keeps the reference's fixed
+    def _local_ba(self, window: List[int], fixed: List[int], defer: bool = False):
+        """Local BA over `window` with `fixed` anchors. The problem is
+        snapshotted under the map lock and solved outside it; the solve is
+        written back now, or with `defer` by the next `_flush_pending_ba`.
+        The pose block is the window + anchors as they are: the reference
+        pads it to a few bucketed sizes (_pose_bucket), one XLA compile
+        each; eager PyTorch compiles nothing, so padding would only add
+        work. The landmark block keeps the reference's fixed
         `max_ba_landmarks` rows."""
-        window = [k for k in window if k in self.map.keyframes]
-        fixed = [k for k in fixed if k in self.map.keyframes]
-        if len(window) < 2:
-            return
-        kf_list, pt_ids, kf_idx, uv, inv_s2, valid = self.map.build_ba_problem(
-            window, fixed, self.max_ba_landmarks
-        )
-        if len(pt_ids) == 0:
-            return
-        r_cw = np.stack([self.map.keyframes[i].r_cw for i in kf_list])
-        t_cw = np.stack([self.map.keyframes[i].t_cw for i in kf_list])
-        points = np.zeros((self.max_ba_landmarks, 3), np.float32)
-        points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
-        fixed_mask = np.array([i in fixed for i in kf_list])
+        with self.map_lock:
+            window = [k for k in window if k in self.map.keyframes]
+            fixed = [k for k in fixed if k in self.map.keyframes]
+            if len(window) < 2:
+                return
+            kf_list, pt_ids, kf_idx, uv, inv_s2, valid = self.map.build_ba_problem(
+                window, fixed, self.max_ba_landmarks
+            )
+            if len(pt_ids) == 0:
+                return
+            r_cw = np.stack([self.map.keyframes[i].r_cw for i in kf_list])
+            t_cw = np.stack([self.map.keyframes[i].t_cw for i in kf_list])
+            points = np.zeros((self.max_ba_landmarks, 3), np.float32)
+            points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
+            # the points' slot generations: a slot culled and reused before a
+            # deferred write-back holds another point by then
+            gen = self.map.pt_gen[pt_ids].copy()
+            fixed_mask = np.array([i in fixed for i in kf_list])
+            # keyframes made after this snapshot ride the solve's correction
+            # through the newest solved keyframe (_apply_ba_result)
+            next_kf = self.map._next_kf
+            solved = [i for s, i in enumerate(kf_list) if not fixed_mask[s]]
+            ref_id = max(solved, default=-1)
+            ref_pre = None if ref_id < 0 else (r_cw[kf_list.index(ref_id)].copy(), t_cw[kf_list.index(ref_id)].copy())
         state = VisionBAState(self._up(r_cw, np.float32), self._up(t_cw, np.float32), self._up(points))
         obs = BAObservations(
             kf_idx=self._up(kf_idx, np.int64), uv=self._up(uv),
             inv_sigma2=self._up(inv_s2), valid=self._up(valid),
         )
         out, obs2 = vision_ba_two_phase(state, obs, self.cam, self._up(fixed_mask))
-        r_new, t_new, p_new, valid_new = self._pull(out.r_cw, out.t_cw, out.points, obs2.valid)
-        for s, i in enumerate(kf_list):
-            if not fixed_mask[s]:
-                self.map.keyframes[i].r_cw = r_new[s]
-                self.map.keyframes[i].t_cw = t_new[s]
-        alive = self.map.pt_active[pt_ids]
-        self.map.pt_xyz[pt_ids[alive]] = p_new[: len(pt_ids)][alive]
-        # remove observations BA marked as outliers
-        dropped = valid & ~valid_new
-        for row in np.nonzero(dropped.any(axis=1))[0]:
-            p = int(pt_ids[row])
-            if not self.map.pt_active[p]:
-                continue
-            for s in np.nonzero(dropped[row])[0]:
-                self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
-        self.map.version += 1
+        job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, obs2.valid),
+               self._record_ready(), next_kf, ref_id, ref_pre)
+        if not defer:
+            self._apply_ba_result(*job)
+            return
+        with self._ba_lock:
+            if self._pending_ba is not None:  # each job flushes before it solves
+                raise RuntimeError("a deferred BA is already pending")
+            self._pending_ba = job
+
+    def _flush_pending_ba(self):
+        """Write the deferred BA back, if one is pending. The swap and the
+        write-back hold `_ba_lock`: a solve is applied exactly once, and a
+        second caller returns after the first's write-back."""
+        with self._ba_lock:
+            job, self._pending_ba = self._pending_ba, None
+            if job is not None:
+                self._apply_ba_result(*job)
+
+    def _apply_ba_result(self, kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, solution, ready, next_kf, ref_id,
+                         ref_pre):
+        """One pull of the solve (after its event, from any thread), then the
+        write-back under the map lock: poses of the solved keyframes; the
+        keyframes made after the snapshot carried along through the newest
+        solved keyframe (the reference's post-GBA spanning-tree pass); the
+        points still in their slots; the observations BA marked as
+        outliers removed. Publishes with `map.version`."""
+        r_new, t_new, p_new, valid_new = self._pull(*solution, after=ready)
+        with self.map_lock:
+            for s, i in enumerate(kf_list):
+                if not fixed_mask[s] and i in self.map.keyframes:
+                    self.map.keyframes[i].r_cw = r_new[s]
+                    self.map.keyframes[i].t_cw = t_new[s]
+            if ref_pre is not None and ref_id in self.map.keyframes:
+                r_old, t_old = ref_pre
+                rk = self.map.keyframes[ref_id]
+                for i in sorted(self.map.keyframes):
+                    if i < next_kf or i in kf_list:
+                        continue
+                    kf = self.map.keyframes[i]
+                    r_rel = kf.r_cw @ r_old.T
+                    t_rel = kf.t_cw - r_rel @ t_old
+                    kf.r_cw = normalize_np(r_rel @ rk.r_cw)
+                    kf.t_cw = (r_rel @ rk.t_cw + t_rel).astype(np.float32)
+            alive = self.map.pt_active[pt_ids] & (self.map.pt_gen[pt_ids] == gen)
+            self.map.pt_xyz[pt_ids[alive]] = p_new[: len(pt_ids)][alive]
+            # remove observations BA marked as outliers
+            dropped = valid & ~valid_new
+            for row in np.nonzero(dropped[: len(pt_ids)].any(axis=1) & alive)[0]:
+                p = int(pt_ids[row])
+                if not self.map.pt_active[p]:
+                    continue
+                for s in np.nonzero(dropped[row])[0]:
+                    self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
+            self.map.version += 1
 
     def _post_loop_gba(self, anchor_kf: int, scale_by_kf=None):
         """The post-loop global BA: belongs to loop closing, not ported yet."""
-        raise NotImplementedError(_NOT_PORTED["vocabulary"])
+        raise NotImplementedError(_NOT_PORTED)
 
     def _cull_keyframes(self, window: List[int]):
         """Redundant-keyframe culling (reference LocalMapping::
@@ -1013,32 +1571,48 @@ class MonoSlam:
 
     # -- state ---------------------------------------------------------------
 
-    def reset(self):
-        """Full system reset (reference Tracking/System::Reset): clear the
-        map and initialize anew. Past trajectory entries are
-        dropped with their keyframes."""
-        self.map = MapStore()
-        self.state = "NOT_INITIALIZED"
+    def _clear_tracking(self):
+        """Forget the frames and device caches that belong to the map being
+        replaced."""
         self.ref_frame = None
         self.last_frame = None
-        self.last_kf_id = -1
         self.frames_since_kf = 0
         self.velocity = None
+        self._dev_carry = None
+        self._carry_anchor = None
+        self._stream_failed = False
+        self._stream_fail_count = 0
+        self._stream_weak_count = 0
         self._lm_cache = None
         self._kf_dev = {}
-        self.traj_entries = []
-        self.n_tracked = 0
+
+    def reset(self):
+        """Full system reset (reference Tracking/System::Reset): clear the
+        map and initialize anew, once mapping is idle. Past trajectory
+        entries are dropped with their keyframes."""
+        self.wait_mapping_idle()
+        with self.map_lock:
+            self.map = MapStore()
+            self.state = "NOT_INITIALIZED"
+            self.last_kf_id = -1
+            self._clear_tracking()
+            self.traj_entries = []
+            self.n_tracked = 0
 
     def set_localization_mode(self, enabled: bool):
         """Track against the frozen map without inserting keyframes
-        (reference System::ActivateLocalizationMode)."""
+        (reference System::ActivateLocalizationMode), once mapping is idle."""
+        self.wait_mapping_idle()
         self.localization_only = enabled
 
     def save_map(self, path: str):
-        """Checkpoint the full map to one .npz (the JAX package's layout)."""
+        """Checkpoint the full map to one .npz (the JAX package's layout),
+        once mapping is idle."""
         from viorb_tpu_torch.mapping.serialize import save_map
 
-        save_map(self.map, path)
+        self.wait_mapping_idle()
+        with self.map_lock:
+            save_map(self.map, path)
 
     def load_map(self, path: str, localization_only: bool = True):
         """Load a checkpointed map and resume from it. The next frame
@@ -1047,45 +1621,48 @@ class MonoSlam:
         from the loaded keyframes."""
         from viorb_tpu_torch.mapping.serialize import load_map
 
-        self.map = load_map(path)
-        active = self.map.kf_ids()
-        self.last_kf_id = max(active) if active else -1
-        self.state = "LOST" if active else "NOT_INITIALIZED"
-        self.last_frame = None
-        self.ref_frame = None
-        self.velocity = None
-        self.frames_since_kf = 0
-        self.localization_only = localization_only
-        self._lm_cache = None
-        self._kf_dev = {}
+        self.wait_mapping_idle()
+        with self.map_lock:
+            self.map = load_map(path)
+            active = self.map.kf_ids()
+            self.last_kf_id = max(active) if active else -1
+            self.state = "LOST" if active else "NOT_INITIALIZED"
+            self.localization_only = localization_only
+            self._clear_tracking()
 
     # -- output --------------------------------------------------------------
 
     def _record_trajectory(self, fr: FrameRecord, ts: float):
         if fr.r_cw is None or self.last_kf_id < 0:
             return
-        kf = self.map.keyframes.get(self.last_kf_id)
-        if kf is None:
-            return
-        # T_rel = T_frame_cw * T_kf_cw^{-1}
-        r_rel = fr.r_cw @ kf.r_cw.T
-        t_rel = fr.t_cw - r_rel @ kf.t_cw
-        self.traj_entries.append((ts, self.last_kf_id, r_rel, t_rel))
+        with self.map_lock:  # keyframe culling rewrites traj_entries under it
+            kf = self.map.keyframes.get(self.last_kf_id)
+            if kf is None:
+                return
+            # T_rel = T_frame_cw * T_kf_cw^{-1}
+            r_rel = fr.r_cw @ kf.r_cw.T
+            t_rel = fr.t_cw - r_rel @ kf.t_cw
+            self.traj_entries.append((ts, self.last_kf_id, r_rel, t_rel))
+            fr.ref = (self.last_kf_id, r_rel, t_rel, self.map.version)
 
     def trajectory_tum(self) -> np.ndarray:
         """(T,8): t, tx ty tz, qx qy qz qw (camera-to-world), composing the
         stored relative poses with the keyframes' CURRENT poses (reference
-        SaveTrajectoryTUM)."""
+        SaveTrajectoryTUM), after the in-flight frames are collected and the
+        pending BA is written back."""
+        self.flush_stream()
+        self._flush_pending_ba()
         ts, centers, r_wcs = [], [], []
-        for t, kf_id, r_rel, t_rel in self.traj_entries:
-            kf = self.map.keyframes.get(kf_id)
-            if kf is None:
-                continue
-            r_cw = r_rel @ kf.r_cw
-            t_cw = r_rel @ kf.t_cw + t_rel
-            ts.append(t)
-            r_wcs.append(r_cw.T)
-            centers.append(-r_cw.T @ t_cw)
+        with self.map_lock:
+            for t, kf_id, r_rel, t_rel in self.traj_entries:
+                kf = self.map.keyframes.get(kf_id)
+                if kf is None:
+                    continue
+                r_cw = r_rel @ kf.r_cw
+                t_cw = r_rel @ kf.t_cw + t_rel
+                ts.append(t)
+                r_wcs.append(r_cw.T)
+                centers.append(-r_cw.T @ t_cw)
         if not ts:
             return np.zeros((0, 8), np.float64)
         q = matrix_to_quat(torch.from_numpy(np.stack(r_wcs).astype(np.float32))).numpy()  # (w,x,y,z)
