@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
-functions and lock-step, async and streaming SLAM on one NVIDIA GPU.
+functions, lock-step, async and streaming SLAM and lock-step
+monocular-inertial SLAM on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,8 +63,23 @@ Phases, in order; any failure raises and exits non-zero:
      tolerances; async and streaming fed as fast as the tracker takes the
      frames track >= 80 % of them with ATE <= max(5x lock-step, 0.20 m);
      recovery after frames 9-14 go blank; no graph capture beside the
-     threads; clean shutdowns;
-  8. time the fused launch, the 8 single-level launches, their plain
+     threads; clean shutdowns. Then async and streaming runs whose frames
+     switch from float32 to uint8 (the same images) at frame 20: each stops
+     its threads, captures once at the new key, restarts them and keeps
+     the un-flushed contract; and un-paced async at
+     tests/test_async_mapping.py's exact configuration, 5 runs, every ATE
+     reported against its 0.06 m;
+  8. lock-step monocular-inertial SLAM: MonoViSlam at tests/test_e2e_vi.py's
+     configuration over its 60-frame arc with the 200 Hz IMU, a warm-up run
+     and a measured one, both drawing the two-view RANSAC hypotheses of the
+     reference's seed-0 run (tests/torch_vi_golden.npz): the reference's
+     contract, agreement with that run, K1 launches = frames, one graph
+     replay and one host sync a steady VI frame, 0 syncs in a replay and
+     replay == eager in each of the VI core's two graphs; times of the VI
+     core graphed and eager, K7 (the preintegration) alone, VI init, vi_ba
+     and vi_ba_gw per LM iteration, the VI mapping job; then six runs with
+     the port's own draws, reported beside the reference's seeds 0-5;
+  9. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -116,6 +132,16 @@ WARM_FRAMES = 12  # a warm-up run: init, a few mapping jobs, steady frames
 HELD_FRAMES = 20
 FLUSHED_FRAMES = 10
 BLACKOUT, BLACKOUT_FRAMES, RECOVERED_FROM = range(9, 15), 28, 16
+# a threaded run whose frames switch from float32 to uint8 at this frame
+SWITCH_AT, SWITCH_FEATURES = 20, 800
+ASYNC_RUNS = 5  # un-paced async at tests/test_async_mapping.py's configuration
+# visual-inertial: tests/test_e2e_vi.py's configuration and contract
+VI_FRAMES, VI_DT, VI_POST_INIT_T = 60, 0.1, 4.5
+VI_CONFIG = dict(n_features=800, vi_init_min_time=2.5, vi_init_min_kfs=8, kf_max_interval=5, imu_capacity=256)
+VI_GOLDENS = tuple(f"vi_full_seed{seed}" for seed in range(6))  # the reference's runs with seeds 0-5
+VI_OWN_SEEDS = range(6)  # runs with the port's own two-view draws
+# tests/test_torch_mono_vi.py's tolerances against the reference's golden
+VI_TRAJ_SHARE, VI_GRAVITY_DEG, VI_SCALE_TOL, VI_ATE_FACTOR = 0.03, 0.5, 0.02, 1.5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the yardsticks of
 # each kernel's bound.
@@ -696,8 +722,449 @@ def _threaded_slam_phase(cam, dev, tag: str) -> dict:
     print(f"{tag} MonoSlam streaming, frames {BLACKOUT[0]}-{BLACKOUT[-1]} blank: {after} trajectory entries from "
           f"frame {RECOVERED_FROM} on, final {dark['state']}, {len(dark['traj'])} of {BLACKOUT_FRAMES} frames tracked")
     _check(after >= 4, f"streaming did not recover after the blackout: {after} entries from frame {RECOVERED_FROM} on")
-    return {"MonoSlam async": results["async"]["k1"]["graph"] + results["async"]["k1"]["eager"],
-            "MonoSlam streaming": results["streaming"]["k1"]["graph"] + results["streaming"]["k1"]["eager"]}
+    launches = {"MonoSlam async": results["async"]["k1"]["graph"] + results["async"]["k1"]["eager"],
+                "MonoSlam streaming": results["streaming"]["k1"]["graph"] + results["streaming"]["k1"]["eager"]}
+    return launches, lock_ate
+
+
+def _dtype_switch_phase(cam, dev, tag: str, lock_ate: float) -> dict:
+    """A threaded MonoSlam whose frames change dtype mid-run (float32, then
+    uint8 frames of the same images from frame SWITCH_AT on), async and
+    streaming, at SWITCH_FEATURES features (a configuration no earlier
+    phase captured at uint8): the run stops its threads at the switch,
+    captures the cores its mode replays at the new key (one new capture)
+    and restarts them, and keeps the un-flushed contract
+    (tests/test_streaming.py). Returns K1 launches by mode."""
+    import numpy as np
+
+    from viorb_tpu_torch import cuda_graph
+    from viorb_tpu_torch.cuda_graph import WARMUP_CALLS
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam.mono import MonoSlam
+    from viorb_tpu_torch.slam.tracking_loop import make_pipeline_track_core, make_streaming_track_core
+
+    seq = synthetic.make_sequence(SLAM_FRAMES, cam=cam, dt=SLAM_DT, device=dev)
+    frames = [im.cpu().numpy() if i < SWITCH_AT else synthetic.to_uint8(im).cpu().numpy()
+              for i, im in enumerate(seq.images)]
+    launches = {}
+    for mode in ("async", "streaming"):
+        slam = MonoSlam(cam, device=dev, n_features=SWITCH_FEATURES, kf_max_interval=THREADED_KF_INTERVAL,
+                        **THREADED_MODES[mode])
+        cores = (make_pipeline_track_core(cam, slam.extractor), make_streaming_track_core(cam, slam.extractor))
+        for c in cores:
+            c.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        at_start = [len(c.captured()) for c in cores]
+        try:
+            for i, (image, ts) in enumerate(zip(frames, seq.timestamps)):
+                if i == SWITCH_AT:
+                    at_switch = [len(c.captured()) for c in cores]
+                    threads = (slam._worker, slam._collector)
+                slam.process_frame(image, float(ts))
+            slam.wait_mapping_idle()
+            traj = slam.trajectory_tum()
+            state = slam.state
+        finally:
+            slam.shutdown()
+        new = sum(len(c.captured()) - n for c, n in zip(cores, at_switch))
+        ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+        # each capture made in this run first ran its function eagerly
+        # WARMUP_CALLS times (cuda_graph.py): those launches extract no frame
+        warm = WARMUP_CALLS * sum(len(c.captured()) - n for c, n in zip(cores, at_start))
+        launches[mode] = sum(c.launches()["CELL_LAUNCHES"] for c in cores) + fast_cuda.CELL_LAUNCHES - warm
+        print(f"{tag} MonoSlam {mode}, float32 frames then uint8 frames of the same images from frame {SWITCH_AT}: "
+              f"{slam.recaptures} recapture (threads stopped, {new} graph captured at the new key, threads "
+              f"restarted), final {state}, {len(traj)} of {SLAM_FRAMES} frames tracked, ATE {ate:.4f} m after "
+              f"Sim3; K1 launches {launches[mode]} for {SLAM_FRAMES} frames (the captures' warm-up calls apart)")
+        _check(slam.recaptures == 1 and new == 1 and not any(t is not None and t.is_alive() for t in threads)
+               and cuda_graph.card_threads() == 0,
+               f"{mode}: the dtype switch must stop the first threads, capture once and restart")
+        _check(state == "OK" and len(traj) >= 0.8 * SLAM_FRAMES and ate <= max(5 * lock_ate, 0.20),
+               f"{mode} with a dtype switch: final {state}, {len(traj)} frames tracked, ATE {ate:.4f} m")
+        _check(launches[mode] == SLAM_FRAMES, f"{mode} with a dtype switch: K1 launches {launches[mode]}")
+    return launches
+
+
+def _async_ate_phase(cam, dev, tag: str) -> None:
+    """Un-paced async mapping at tests/test_async_mapping.py's exact
+    configuration (its 40-frame sequence at dt=0.1, float32 frames,
+    n_features=800, kf_max_interval=5), ASYNC_RUNS runs after a warm-up run,
+    and one lock-step run for comparison: every ATE (after Sim3) against the
+    test's 0.06 m, which this phase reports and does not enforce; the rest of
+    the test's contract (final state OK, the map published) it does."""
+    import numpy as np
+
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam.mono import MonoSlam
+
+    seq = synthetic.make_sequence(SLAM_FRAMES, cam=cam, dt=SLAM_DT, device=dev)
+    frames = [im.cpu().numpy() for im in seq.images]  # float32 from the host, as the test feeds them
+
+    def run(async_mapping: bool):
+        slam = MonoSlam(cam, device=dev, n_features=800, kf_max_interval=5, async_mapping=async_mapping)
+        solves = []
+        local_ba = slam._local_ba
+        slam._local_ba = lambda *a, **k: (solves.append(1), local_ba(*a, **k))[1]
+        t0 = time.perf_counter()
+        try:
+            for image, ts in zip(frames, seq.timestamps):
+                info = slam.process_frame(image, float(ts))
+            slam.wait_mapping_idle()
+            wall = time.perf_counter() - t0
+            traj = slam.trajectory_tum()
+        finally:
+            slam.shutdown()
+        ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+        return dict(state=info["state"], version=slam.map.version, ate=ate, kfs=slam.map._next_kf,
+                    jobs=len(slam.job_times), solves=len(solves), fps=SLAM_FRAMES / wall)
+
+    run(True)  # warm-up
+    lock = run(False)
+    runs = [run(True) for _ in range(ASYNC_RUNS)]
+    ates = [r["ate"] for r in runs]
+    print(f"{tag} MonoSlam at tests/test_async_mapping.py's configuration (800 features, a keyframe at least every "
+          f"5 frames, float32 frames fed un-paced): lock-step ATE {lock['ate']:.4f} m ({lock['kfs']} keyframes, "
+          f"{lock['solves']} local BAs, {lock['fps']:.1f} fps); async, {ASYNC_RUNS} runs: ATE "
+          + ", ".join(f"{a:.4f}" for a in ates) + " m; " + ", ".join(
+              f"{r['kfs']} keyframes / {r['jobs']} jobs / {r['solves']} local BAs / {r['fps']:.1f} fps" for r in runs)
+          + f"; {sum(a < 0.06 for a in ates)} of {ASYNC_RUNS} under the test's 0.06 m")
+    for r in runs + [lock]:
+        _check(r["state"] == "OK" and r["version"] > 0, f"async at the test's configuration: {r}")
+
+
+def _vi_phase(cam, dev, tag: str) -> int:
+    """Lock-step monocular-inertial SLAM: MonoViSlam at
+    tests/test_e2e_vi.py's configuration (800 features, VI init after 2.5 s
+    and 8 keyframes, a keyframe at least every 5 frames, IMU capacity 256)
+    over its 60-frame 752x480 arc at dt=0.1 with the 200 Hz synthetic IMU,
+    rendered on the card: a warm-up run, then the measured run with the
+    launch counts set to 0 just before it. Both draw the two-view RANSAC's
+    hypotheses that the reference's run with seed 0 drew (its minimal sets
+    are in tests/torch_vi_golden.npz; the port's own code fits and scores
+    them): the outcome at this configuration hangs on that draw in both
+    packages (the reference's seeds 0-5 in the golden), and with the same
+    draw the port reproduces the reference's run. Asserts the reference's
+    contract (VI ready; final state OK or IMU_ONLY; > 60 % of frames OK;
+    gravity cos > 0.996; metric ATE < 0.05 m; after 4.5 s metric and Sim3
+    ATE < 0.02 m; scale 0.94-1.06), agreement with that golden run (VI
+    init at the same frame, tests/test_torch_mono_vi.py's tolerances),
+    K1 launches = frames,
+    ONE graph replay and ONE host sync of the tracker a steady VI frame, 0
+    host syncs in a replay of each VI graph, and each graph's replay equal
+    to its eager function on 3 frames. Then times: the VI core graphed and
+    eager (ms and kernels a frame), K7 (a graph of `preintegrate` alone at
+    capacity 256) and its share of the core, the steady VI frame, VI init,
+    `vi_ba` and `vi_ba_gw` per LM iteration at the window the run used, and
+    the VI mapping job. Last, VI_OWN_SEEDS runs with the port's own draws
+    (its torch.Generator seeded 0-5): the contract's draw-independent part
+    is asserted (VI ready, final OK or IMU_ONLY, > 60 % of frames OK,
+    gravity cos > 0.996), the metric ATE and scale are reported beside the
+    reference's seeds. Returns the measured run's K1 launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.cuda_graph import GraphedFunction
+    from viorb_tpu_torch.eval.ate import associate, ate_rmse, umeyama_alignment
+    from viorb_tpu_torch.eval.gravity import gravity_angle_deg
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.imu.preintegration import preintegrate
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.optim import ba as ba_module
+    from viorb_tpu_torch.slam import mono as mono_module
+    from viorb_tpu_torch.slam import mono_vi as mono_vi_module
+    from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+    from viorb_tpu_torch.solvers.two_view import two_view_from_samples
+    from viorb_tpu_torch.slam.tracking_loop import ViPipelineCore, make_pipeline_track_core, make_vi_pipeline_core
+
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_vi_golden.npz")
+    fields = ("init_frame", "n_kfs", "gravity", "traj", "ate_metric", "ate_post_metric", "ate_post_sim3",
+              "scale_ratio", "config", "two_view_calls")
+    with np.load(golden_path) as z:
+        goldens = {name: {f: z[f"{name}_{f}"] for f in fields} for name in VI_GOLDENS}
+        replayed = VI_GOLDENS[0]
+        draws = [tuple(z[f"{replayed}_two_view{i}_{k}"] for k in ("x1", "valid", "idx_h", "idx_f"))
+                 for i in range(int(goldens[replayed]["two_view_calls"]))]
+    for name, g in goldens.items():
+        config = dict(g["config"].tolist())
+        _check(int(config["n_frames"]) == VI_FRAMES and float(config["dt"]) == VI_DT
+               and int(config["width"]) == cam.width and int(config["n_features"]) == VI_CONFIG["n_features"]
+               and int(config["kf_max_interval"]) == VI_CONFIG["kf_max_interval"],
+               f"the golden {name}'s configuration is not this phase's: {config}")
+    seq = synthetic.make_sequence(VI_FRAMES, cam=cam, dt=VI_DT, device=dev)
+    imu = synthetic.make_imu(VI_FRAMES, VI_DT, hz=200.0)
+    samples = []
+    prev = -np.inf
+    for ts in seq.timestamps:
+        sel = (imu.t > prev) & (imu.t <= ts)
+        samples.append([(float(t), g, a) for t, g, a in zip(imu.t[sel], imu.gyro[sel], imu.acc[sel])])
+        prev = ts
+    on_card = dev.type == "cuda"
+    recorded = {}  # use_prior -> the VI core's arguments on its first frames in that mode
+    ba_calls = {}  # "vi_ba" / "vi_ba_gw" -> the last VI / gravity-vertex BA's arguments
+
+    def record_core(call):
+        def wrapped(self, *args, use_prior=False):
+            kept = recorded.setdefault(use_prior, [])
+            if len(kept) < 3:
+                kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else type(a)(*[x.clone() for x in a])
+                                  for a in args))
+            return call(self, *args, use_prior=use_prior)
+        return wrapped
+
+    def record_ba(name, fn):
+        def wrapped(*args, **kwargs):
+            ba_calls[name] = (args, kwargs)  # the last: the window of the steady mapping jobs
+            return fn(*args, **kwargs)
+        return wrapped
+
+    two_view = mono_module.two_view_init
+    replay_log = []
+
+    def replaying():
+        """The reference's minimal sets, call by call, then the port's own."""
+        calls = iter(draws)
+
+        def two_view_init(x1, x2, valid, cam_, generator, n_hypotheses=256):
+            ref = next(calls, None)
+            if ref is None:
+                replay_log.append("own draw")
+                return two_view(x1, x2, valid, cam_, generator, n_hypotheses)
+            ref_x1, ref_valid, idx_h, idx_f = ref
+            replay_log.append((bool(np.array_equal(valid.cpu().numpy(), ref_valid)),
+                               float(np.abs(x1.cpu().numpy() - ref_x1).max())))
+            return two_view_from_samples(x1, x2, valid, cam_, torch.from_numpy(idx_h).to(x1.device),
+                                         torch.from_numpy(idx_f).to(x1.device))
+
+        return two_view_init
+
+    def run(measure: bool, seed=None):
+        """A run with the reference's draws, or with the port's own from `seed`."""
+        slam = MonoViSlam(cam, device=dev, seed=seed or 0, **VI_CONFIG)
+        replay_log.clear()
+        mono_module.two_view_init = replaying() if seed is None else two_view
+        # the process-wide cores this run replays (slam/tracking_loop.py's cache)
+        pipe = make_pipeline_track_core(cam, slam.extractor)
+        vi_core = make_vi_pipeline_core(cam, slam.extractor, slam.ext, slam.imu_noise)
+        rows, frame_ms, frame_syncs, replays, mapped = [], [], [], [], []
+        pipe.reset_counts()
+        for g in vi_core.graphs.values():
+            g.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        if on_card:
+            torch.cuda.synchronize()
+            if measure:
+                torch.cuda.set_sync_debug_mode("warn")
+        t_run = time.perf_counter()
+        try:
+            for image, ts, imu_samples in zip(seq.images, seq.timestamps, samples):
+                before = sum(g.replays for g in vi_core.graphs.values()) + pipe.replays
+                jobs = len(slam.job_times)
+                t0 = time.perf_counter()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    info = slam.process_frame_vi(image, float(ts), imu_samples)  # ends in a pull
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                frame_syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+                replays.append(sum(g.replays for g in vi_core.graphs.values()) + pipe.replays - before)
+                mapped.append(len(slam.job_times) > jobs)
+                rows.append((info["state"], info["n_tracked"], info["n_kfs"], slam.vi_ready))
+        finally:
+            mono_module.two_view_init = two_view
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        wall_s = time.perf_counter() - t_run
+        _check(slam._vi_core is vi_core, "MonoViSlam replays another VI core than the process-wide one")
+        graphs = list(vi_core.graphs.values())
+        counts = dict(graph=sum(g.launches()["CELL_LAUNCHES"] for g in graphs) + pipe.launches()["CELL_LAUNCHES"],
+                      eager=fast_cuda.CELL_LAUNCHES,
+                      single=fast_cuda.LAUNCHES + sum(g.launches()["LAUNCHES"] for g in graphs + [pipe]),
+                      replays=sum(g.replays for g in graphs) + pipe.replays)
+        return slam, vi_core, rows, frame_ms, frame_syncs, replays, mapped, wall_s, counts
+
+    t_warm = time.perf_counter()
+    run(measure=False)
+    warm_s = time.perf_counter() - t_warm
+    orig = (ViPipelineCore.__call__, mono_vi_module.vi_ba_two_phase, mono_vi_module.vi_ba_gw_two_phase)
+    ViPipelineCore.__call__ = record_core(orig[0])
+    mono_vi_module.vi_ba_two_phase = record_ba("vi_ba", orig[1])
+    mono_vi_module.vi_ba_gw_two_phase = record_ba("vi_ba_gw", orig[2])
+    try:
+        slam, vi_core, rows, frame_ms, frame_syncs, replays, mapped, wall_s, counts = run(measure=True)
+        measured_log = list(replay_log)
+    finally:
+        ViPipelineCore.__call__, mono_vi_module.vi_ba_two_phase, mono_vi_module.vi_ba_gw_two_phase = orig
+    launches = counts["graph"] + counts["eager"]
+
+    # the reference's contract (tests/test_e2e_vi.py)
+    states = [r[0] for r in rows]
+    n_ok = states.count("OK")
+    vi_init = next((i for i, r in enumerate(rows) if r[3]), -1)
+    g_est = np.asarray(slam.gravity, np.float64)
+    g_true = synthetic.GRAVITY_W.astype(np.float64)
+    cos = float(g_est @ g_true / (np.linalg.norm(g_est) * np.linalg.norm(g_true)))
+    traj = slam.trajectory_tum()
+    post = traj[:, 0] >= VI_POST_INIT_T
+    ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+    ate_post = ate_rmse(traj[post, 0], traj[post, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+    ate_post_sim3 = ate_rmse(traj[post, 0], traj[post, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    scale = float(np.linalg.norm(np.ptp(traj[:, 1:4], axis=0)) / np.linalg.norm(np.ptp(seq.c_w, axis=0)))
+    print(f"{tag} MonoViSlam lock-step, {VI_FRAMES} rendered {cam.width}x{cam.height} frames at dt={VI_DT} with "
+          f"the 200 Hz IMU: vision init at frame {states.index('OK') if 'OK' in states else -1}, VI init at frame "
+          f"{vi_init}, {n_ok} frames OK, final {rows[-1][0]}, {rows[-1][2]} keyframes; gravity cos {cos:.6f}; "
+          f"metric ATE {ate:.4f} m, after {VI_POST_INIT_T} s metric {ate_post:.4f} m / Sim3 {ate_post_sim3:.4f} m; "
+          f"scale {scale:.4f}")
+    _check(slam.vi_ready and rows[-1][0] in ("OK", "IMU_ONLY") and n_ok > 0.6 * VI_FRAMES and cos > 0.996
+           and ate < 0.05 and ate_post < 0.02 and ate_post_sim3 < 0.02 and 0.94 < scale < 1.06,
+           "MonoViSlam misses tests/test_e2e_vi.py's contract")
+
+    # the reference's run whose draws this run replayed
+    gold_name = replayed
+    gold = goldens[gold_name]
+    print("MonoViSlam two-view RANSAC calls in the measured run: " + ", ".join(
+        e if isinstance(e, str) else f"{gold_name}'s minimal sets (valid matches {'equal' if e[0] else 'DIFFERENT'}, "
+        f"x1 within {e[1]:.2e} px of the reference's)" for e in measured_log))
+
+    def apart(a, b):
+        ia, ib = associate(a[:, 0], b[:, 0])
+        s_, r_, t_ = umeyama_alignment(a[ia, 1:4], b[ib, 1:4], with_scale=True)
+        err = b[ib, 1:4] - (s_ * a[ia, 1:4] @ r_.T + t_)
+        return float(np.sqrt((err**2).sum(1).mean())) / float(np.linalg.norm(b[:, 1:4] - b[0, 1:4], axis=1).max())
+
+    rms_share = apart(traj, gold["traj"])
+    angle = gravity_angle_deg(g_est, gold["gravity"])
+    n_kfs = np.array([r[2] for r in rows])
+    print(f"MonoViSlam vs the reference's {gold_name} (VI init at frame {int(gold['init_frame'])}, metric ATE "
+          f"{float(gold['ate_metric']):.4f} m, scale {float(gold['scale_ratio']):.4f}): trajectories "
+          f"{rms_share * 100:.4f} % of the extent apart (RMS after Sim3), gravity {angle:.4f} deg apart, scale "
+          f"{scale - float(gold['scale_ratio']):+.5f}, metric ATE {ate / float(gold['ate_metric']):.4f}x, keyframes "
+          f"per frame within {int(np.abs(n_kfs - gold['n_kfs']).max())}")
+    _check(vi_init == int(gold["init_frame"]) and rms_share <= VI_TRAJ_SHARE and angle <= VI_GRAVITY_DEG
+           and abs(scale - float(gold["scale_ratio"])) <= VI_SCALE_TOL and ate <= VI_ATE_FACTOR * float(gold["ate_metric"])
+           and int(np.abs(n_kfs - gold["n_kfs"]).max()) <= 1,
+           f"MonoViSlam and the reference's {gold_name} disagree")
+
+    # K1 and the steady VI frame: one graph replay and one host sync
+    print(f"MonoViSlam K1 launches: {counts['graph']} through graphs ({counts['replays']} replays) + "
+          f"{counts['eager']} eager = {launches} for {VI_FRAMES} frames; single-image launches {counts['single']}")
+    steady = [i for i in range(VI_FRAMES) if i > vi_init >= 0 and states[i] == "OK" and not mapped[i]
+              and rows[i - 1][0] == "OK"]
+    steady_ms = np.array([frame_ms[i] for i in steady])
+    steady_syncs = [frame_syncs[i] for i in steady]
+    steady_replays = [replays[i] for i in steady]
+    sync_hist = {int(k): int(v) for k, v in zip(*np.unique(steady_syncs, return_counts=True))}
+    print(f"{tag} MonoViSlam steady VI frames ({len(steady)}): graph replays a frame "
+          f"{sorted(set(steady_replays))}, host syncs of the tracker {sync_hist} (syncs: frames); median "
+          f"{np.median(steady_ms):.3f} ms, p90 {np.percentile(steady_ms, 90):.3f} ms a frame (host clock)")
+    _check(len(steady) >= 10 and set(steady_replays) == {1}, f"steady VI frames: replays {steady_replays}")
+    if on_card:
+        _check(launches == VI_FRAMES and counts["single"] == 0 and counts["graph"] == counts["replays"],
+               f"MonoViSlam K1 launches {counts} for {VI_FRAMES} frames")
+        _check(set(steady_syncs) == {1}, f"a steady VI frame must sync once: {steady_syncs}")
+
+    # each VI graph: 0 host syncs in a replay, a replay equal to the eager
+    # function on 3 recorded frames, graphed and eager times, kernels a frame
+    core_ms = {}
+    for use_prior, frames_args in sorted(recorded.items()):
+        graph = vi_core.graphs[use_prior]
+        label = "frame-to-frame with the prior" if use_prior else "frame-to-keyframe"
+        _check(len(frames_args) == 3, f"VI core, {label}: {len(frames_args)} recorded frames")
+        for args in frames_args:
+            out, ref = _leaves(graph(*args)), _leaves(graph.eager(*args))
+            _check(all(torch.equal(a, b) for a, b in zip(out, ref)), f"VI core, {label}: replay != eager")
+        syncs = _count_syncs(lambda: graph(*frames_args[0]))
+        _check(not syncs, f"VI core, {label}: a replay synced with the host: {syncs}")
+        g_ms = _event_ms(lambda: graph(*frames_args[0]), reps=50)
+        e_ms = _event_ms(lambda: graph.eager(*frames_args[0]), reps=5, warmup=1)
+        core_ms[use_prior] = g_ms
+        kernels = _kernels_per_call(lambda: graph.eager(*frames_args[0]))
+        print(f"{tag} VI core, {label}: graphed {g_ms:.3f} ms a frame, eager {e_ms:.3f} ms a frame (CUDA events); "
+              f"{kernels} kernels a frame (eager, profiler); 0 host syncs in a replay; replay == eager on 3 frames")
+
+    # K7: the preintegration alone, as a graph at capacity 256, on the
+    # recorded frame-to-keyframe frame's since-keyframe batch
+    args = recorded[False][0]
+    batch_kf, t_kf, t_now, bias_g, bias_a = args[4], args[7], args[6], args[8], args[9]
+    k7 = GraphedFunction(lambda b, bg, ba, t0, t1: preintegrate(b, bg, ba, t0, t1, slam.imu_noise))
+    k7_ms = _event_ms(lambda: k7(batch_kf, bias_g, bias_a, t_kf, t_now), reps=100)
+    k7_eager = _event_ms(lambda: k7.eager(batch_kf, bias_g, bias_a, t_kf, t_now), reps=10)
+    k7_kernels = _kernels_per_call(lambda: k7.eager(batch_kf, bias_g, bias_a, t_kf, t_now))
+    print(f"{tag} K7 preintegrate, capacity {slam.imu_capacity}, one segment: graphed {k7_ms:.4f} ms, eager "
+          f"{k7_eager:.3f} ms, {k7_kernels} kernels; two of them (since the frame, since the keyframe) are "
+          f"{2 * k7_ms / core_ms[False] * 100:.1f} % of the frame-to-keyframe core's "
+          f"{core_ms[False]:.3f} ms" + (f", one is {k7_ms / core_ms[True] * 100:.1f} % of the frame-to-frame "
+                                         f"core's {core_ms[True]:.3f} ms" if True in core_ms else ""))
+
+    # the VI BAs per LM iteration at the window the run used
+    for name, fn in (("vi_ba", ba_module.vi_ba), ("vi_ba_gw", ba_module.vi_ba_gw)):
+        if name not in ba_calls:
+            print(f"{tag} {name}: not run in this run")
+            continue
+        (state, obs, cam_, ext, chain, gravity, fixed), kw = ba_calls[name][0][:7], ba_calls[name][1]
+        ba_ms = _event_ms(lambda: fn(state, obs, cam_, ext, chain, gravity, fixed, iters=BA_ITERS),
+                          reps=3, warmup=1) / BA_ITERS
+        syncs = _count_syncs(lambda: fn(state, obs, cam_, ext, chain, gravity, fixed, iters=1))
+        print(f"{tag} {name} K={state.nav.p.shape[0]} M={obs.kf_idx.shape[0]} R={obs.kf_idx.shape[1]} "
+              f"E={chain.valid.shape[0]}: {ba_ms:.3f} ms per LM iteration (eager, CUDA events, {BA_ITERS} "
+              f"iterations a solve); host syncs in one iteration: {len(syncs)}")
+
+    vi_jobs = [j for j, i in zip(slam.job_times, [i for i in range(VI_FRAMES) if mapped[i]]) if i > vi_init]
+    parts = {k: float(np.median([j[k] for j in vi_jobs])) for k in vi_jobs[0]} if vi_jobs else {}
+    print(f"{tag} MonoViSlam VI init (the keyframe frame whose mapping job initialized VI, frame {vi_init}): "
+          f"{frame_ms[vi_init]:.3f} ms; VI mapping jobs after it, median of {len(vi_jobs)}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " ms; the VI BAs (kind, K, ms): "
+          + ", ".join(f"{k} {n} {ms:.1f}" for k, n, ms in slam.vi_ba_times))
+    print(f"{tag} MonoViSlam whole run: {wall_s:.3f} s for {VI_FRAMES} frames = {VI_FRAMES / wall_s:.2f} fps "
+          f"(host clock; warm-up run {warm_s:.2f} s)")
+
+    # the port's own draws: the outcome spreads with the draw, as the
+    # reference's seeds do
+    def contract(metric, post, post_sim3, sc):
+        return metric < 0.05 and post < 0.02 and post_sim3 < 0.02 and 0.94 < sc < 1.06
+
+    own = []
+    for seed in VI_OWN_SEEDS:
+        o_slam, _, o_rows, *_ = run(measure=False, seed=seed)
+        o_traj = o_slam.trajectory_tum()
+        o_post = o_traj[:, 0] >= VI_POST_INIT_T
+        g_o = np.asarray(o_slam.gravity, np.float64)
+        o_cos = float(g_o @ g_true / (np.linalg.norm(g_o) * np.linalg.norm(g_true)))
+        o_states = [r[0] for r in o_rows]
+        vals = (ate_rmse(o_traj[:, 0], o_traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False),
+                ate_rmse(o_traj[o_post, 0], o_traj[o_post, 1:4], seq.timestamps, seq.c_w, with_scale=False),
+                ate_rmse(o_traj[o_post, 0], o_traj[o_post, 1:4], seq.timestamps, seq.c_w, with_scale=True),
+                float(np.linalg.norm(np.ptp(o_traj[:, 1:4], axis=0)) / np.linalg.norm(np.ptp(seq.c_w, axis=0))))
+        own.append((seed, next((i for i, r in enumerate(o_rows) if r[3]), -1), o_cos, *vals))
+        _check(o_slam.vi_ready and o_states[-1] in ("OK", "IMU_ONLY") and o_states.count("OK") > 0.6 * VI_FRAMES
+               and o_cos > 0.996, f"MonoViSlam with its own draw, seed {seed}: {o_states[-1]}, cos {o_cos:.5f}")
+    ref_vals = [(n, int(g["init_frame"]), float(g["ate_metric"]), float(g["ate_post_metric"]),
+                 float(g["ate_post_sim3"]), float(g["scale_ratio"])) for n, g in goldens.items()]
+    print(f"{tag} MonoViSlam with the port's own two-view draws (seed, VI init frame, gravity cos, metric ATE, "
+          f"post-init metric / Sim3, scale): "
+          + "; ".join(f"{s_} {f_} {c_:.5f} {m_:.4f} {p_:.4f}/{q_:.4f} {r_:.4f}" for s_, f_, c_, m_, p_, q_, r_ in own)
+          + f"; the full contract holds in {sum(contract(*o[3:]) for o in own)} of {len(own)}. The reference's "
+          f"seeds (golden): " + "; ".join(f"{n} {f_} {m_:.4f} {p_:.4f}/{q_:.4f} {r_:.4f}" for n, f_, m_, p_, q_, r_
+                                          in ref_vals)
+          + f"; the full contract holds in {sum(contract(*r[2:]) for r in ref_vals)} of {len(ref_vals)}")
+    return launches
+
+
+def _kernels_per_call(fn) -> int:
+    """CUDA kernels (and device copies) one call of fn() launches, by the
+    profiler; 0 when the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def main() -> int:
@@ -1164,9 +1631,15 @@ def main() -> int:
     slam_launches = _slam_phase(cam, dev, tag)
 
     # ---- 7. async mapping and streaming MonoSlam --------------------------
-    threaded_launches = _threaded_slam_phase(cam, dev, tag)
+    threaded_launches, lock_ate = _threaded_slam_phase(cam, dev, tag)
+    switch_launches = _dtype_switch_phase(cam, dev, tag, lock_ate)
+    threaded_launches.update({f"MonoSlam {m}, dtype switch": n for m, n in switch_launches.items()})
+    _async_ate_phase(cam, dev, tag)
 
-    # ---- 8. times --------------------------------------------------------
+    # ---- 8. lock-step visual-inertial SLAM: MonoViSlam --------------------
+    threaded_launches["MonoViSlam"] = _vi_phase(cam, dev, tag)
+
+    # ---- 9. times --------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -1347,8 +1820,9 @@ def main() -> int:
             "replaces": "viorb_tpu/features/fast_pallas.py:30, viorb_tpu/features/fast.py:79",
             "path": f"make_tracking_step, make_pipeline_track_core and make_streaming_track_core, each one "
                     f"CUDA graph a frame, over {N_FRAMES - 1} frames each (launches in the capture x replays); "
-                    f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each (graph replays + "
-                    f"eager extractions)",
+                    f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each, async and "
+                    f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames (graph "
+                    f"replays + eager extractions)",
             "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
             "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
             "max_abs_err": cells_err,

@@ -1,8 +1,15 @@
-"""Make the goldens the port's lock-step MonoSlam is held to:
-`tests/torch_mono_golden.npz`.
+"""Make the goldens the port is held to: `tests/torch_mono_golden.npz`
+(lock-step and streaming MonoSlam), `tests/torch_vi_golden.npz`
+(lock-step MonoViSlam), `tests/torch_front_golden.npz` (the tracking step
+and cores) and `tests/torch_optim_golden.npz` (the VI optimizers and
+init).
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py           # write
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check   # recompute, compare
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py [SET ...]           # write
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check [SET ...]   # recompute, compare
+
+SET is `mono`, `vi`, `front` or `optim` (default: all four). The mono set
+is described first; the others at `VI_CONFIGS`, `FRONT_DOC` and
+`OPTIM_DOC`.
 
 The JAX package's `MonoSlam` (the reference) runs, lock-step, on the frames
 the PORT's renderer makes on the CPU (`viorb_tpu_torch.io.synthetic.
@@ -146,7 +153,7 @@ def run_reference_streaming(name: str) -> dict:
     return {"state": rows[:, 0], "n_tracked": rows[:, 1], "n_points": rows[:, 2], "kf_ids": ids}
 
 
-def make() -> dict:
+def make_mono() -> dict:
     out = {"reference_commit": np.array(reference_commit())}
     for name in CONFIGS:
         for k, v in run_reference(name).items():
@@ -154,6 +161,366 @@ def make() -> dict:
     for k, v in run_reference_streaming("half").items():
         out[f"half_stream_{k}"] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# lock-step MonoViSlam (tests/test_torch_mono_vi.py, chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+VI_GOLDEN = os.path.join(HERE, "torch_vi_golden.npz")
+VI_STATES = ("NOT_INITIALIZED", "OK", "LOST", "IMU_ONLY")
+VI_KEYS = ("n_features", "local_window", "max_local_points", "max_ba_landmarks", "kf_max_interval",
+           "vi_init_min_time", "vi_init_min_kfs", "imu_capacity", "seed")
+# The reference's MonoViSlam, lock-step, on the port's rendered frames (f32)
+# and the port's synthetic IMU (200 Hz, equal to the reference's), in:
+#   * "vi_half": the CPU test's: the 376x240 camera of
+#     tests/torch_port_scene.py, 35 frames at dt=0.2 s (7 s of the arc), 300
+#     features, a keyframe at least every 3 frames, VI init after 2.5 s and
+#     8 keyframes, 1024 local-map slots, 512 BA landmarks. At this size the
+#     reference recovers metric scale only to ~0.86 (its own outcome, which
+#     the port is held to);
+#   * "vi_full_seed0" ... "vi_full_seed5": tests/test_e2e_vi.py's
+#     configuration at full size (752x480, 60 frames at dt=0.1 s, 800
+#     features, a keyframe at least every 5 frames, VI init after 2.5 s and
+#     8 keyframes, capacity 256) with the reference's RANSAC seeds 0-5:
+#     chip_smoke.py replays seed 0's two-view minimal sets on the card and
+#     holds its run to that run, and reports the spread of the others.
+# Each records per frame the state (VI_STATES), tracked count, keyframe and
+# point counts and vi_ready; the first VI frame; the final gravity; the TUM
+# trajectory; the metric (SE3) and Sim3 ATE over the whole run and after
+# POST_INIT_T s; the scale ratio (trajectory extent over the truth's); and
+# each two-view RANSAC call's matches (x1, valid) and minimal sets
+# (`two_view{i}_*`). Given the same minimal sets the port reproduces these
+# runs (at full size on the CPU: trajectories 1e-5 of the extent apart);
+# with draws of its own the outcome spreads as the reference's seeds do.
+VI_HALF = dict(width=376, height=240, fx=225.0, cx=188.0, cy=120.0, n_frames=35, dt=0.2, n_features=300,
+               local_window=10, max_local_points=1024, max_ba_landmarks=512, kf_max_interval=3,
+               vi_init_min_time=2.5, vi_init_min_kfs=8, imu_capacity=256, seed=0)
+VI_FULL = dict(width=752, height=480, fx=450.0, cx=376.0, cy=240.0, n_frames=60, dt=0.1, n_features=800,
+               local_window=10, max_local_points=4096, max_ba_landmarks=2048, kf_max_interval=5,
+               vi_init_min_time=2.5, vi_init_min_kfs=8, imu_capacity=256)
+VI_FULL_SEEDS = (0, 1, 2, 3, 4, 5)
+VI_CONFIGS = {"vi_half": VI_HALF}
+VI_CONFIGS.update({f"vi_full_seed{seed}": dict(VI_FULL, seed=seed) for seed in VI_FULL_SEEDS})
+POST_INIT_T = 4.5  # tests/test_e2e_vi.py's post-init split
+
+
+def vi_inputs(c: dict, device="cpu"):
+    """(port camera, port sequence, IMU) of a VI configuration."""
+    from viorb_tpu_torch.geometry.camera import PinholeCamera
+    from viorb_tpu_torch.io import synthetic
+
+    cam = PinholeCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    seq = synthetic.make_sequence(c["n_frames"], cam=cam, dt=c["dt"], device=device)
+    return cam, seq, synthetic.make_imu(c["n_frames"], c["dt"], hz=200.0)
+
+
+def imu_between(imu, t0: float, t1: float):
+    """The samples in (t0, t1] as (t, gyro, acc) tuples, process_frame_vi's
+    argument."""
+    sel = (imu.t > t0) & (imu.t <= t1)
+    return [(float(t), g, a) for t, g, a in zip(imu.t[sel], imu.gyro[sel], imu.acc[sel])]
+
+
+def vi_outcome(rows, traj, gravity, seq) -> dict:
+    """The recorded outcome of one VI run (the port's too: chip_smoke.py and
+    the CPU test compute it with the same function)."""
+    from viorb_tpu_torch.eval.ate import ate_rmse
+
+    rows = np.asarray(rows, np.int64)
+    post = traj[:, 0] >= POST_INIT_T
+    ate = lambda m, s: np.float64(ate_rmse(traj[m, 0], traj[m, 1:4], seq.timestamps, seq.c_w, with_scale=s))
+    every = np.ones(len(traj), bool)
+    return {
+        "state": rows[:, 0], "n_tracked": rows[:, 1], "n_kfs": rows[:, 2], "n_points": rows[:, 3],
+        "vi_ready": rows[:, 4],
+        "init_frame": np.int64(np.argmax(rows[:, 4]) if rows[:, 4].any() else -1),
+        "gravity": np.asarray(gravity if gravity is not None else np.zeros(3), np.float64),
+        "traj": traj,
+        "ate_metric": ate(every, False), "ate_sim3": ate(every, True),
+        "ate_post_metric": ate(post, False) if post.sum() > 2 else np.float64(np.nan),
+        "ate_post_sim3": ate(post, True) if post.sum() > 2 else np.float64(np.nan),
+        "scale_ratio": np.float64(np.linalg.norm(np.ptp(traj[:, 1:4], axis=0)) / np.linalg.norm(np.ptp(seq.c_w, axis=0))),
+    }
+
+
+def _two_view_samples(valid, key, n_hypotheses=256):
+    """The minimal sets the reference's `two_view_init` draws from `key`
+    (viorb_tpu/solvers/two_view.py: one key per hypothesis, the H and the F
+    set from the same key): ((n,4), (n,8)) int64."""
+    import jax
+    import jax.numpy as jnp
+
+    n = valid.shape[0]
+    p = valid.astype(jnp.float32)
+    p = p / jnp.maximum(jnp.sum(p), 1.0)
+    keys = jax.random.split(key, n_hypotheses)
+    draw = lambda m: jax.vmap(lambda k: jax.random.choice(k, n, shape=(m,), replace=False, p=p))(keys)  # noqa: E731
+    return np.asarray(draw(4), np.int64), np.asarray(draw(8), np.int64)
+
+
+def run_reference_vi(name: str) -> dict:
+    import viorb_tpu.slam.mono as ref_mono
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.slam.mono_vi import MonoViSlam as RefMonoViSlam
+
+    c = VI_CONFIGS[name]
+    cam, seq, imu = vi_inputs(c)
+    # the two-view RANSAC's minimal sets, call by call: the card run of
+    # chip_smoke.py draws the same hypotheses (two_view_from_samples)
+    calls = []
+    two_view = ref_mono.two_view_init
+
+    def recording(x1, x2, valid, cam_, key):
+        calls.append((np.asarray(x1), np.asarray(valid), *_two_view_samples(valid, key)))
+        return two_view(x1, x2, valid, cam_, key)
+
+    ref_mono.two_view_init = recording
+    try:
+        slam = RefMonoViSlam(RefCamera(**cam._asdict()), **{k: c[k] for k in VI_KEYS})
+        rows, prev = [], -np.inf
+        for image, ts in zip(seq.images, seq.timestamps):
+            info = slam.process_frame_vi(image.numpy(), float(ts), imu_between(imu, prev, ts))
+            prev = ts
+            rows.append((VI_STATES.index(info["state"]), info["n_tracked"], info["n_kfs"], info["n_points"],
+                         int(slam.vi_ready)))
+    finally:
+        ref_mono.two_view_init = two_view
+    out = vi_outcome(rows, slam.trajectory_tum(), slam.gravity, seq)
+    out["config"] = np.array(sorted(c.items()), dtype=str)
+    out["two_view_calls"] = np.int64(len(calls))
+    for i, (x1, valid, idx_h, idx_f) in enumerate(calls):
+        out.update({f"two_view{i}_x1": x1, f"two_view{i}_valid": valid, f"two_view{i}_idx_h": idx_h,
+                    f"two_view{i}_idx_f": idx_f})
+    return out
+
+
+def make_vi() -> dict:
+    """The VI runs, each in a process of its own, all at once."""
+    import tempfile
+
+    out = {"reference_commit": np.array(reference_commit())}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen([sys.executable, __file__, "--worker", name, os.path.join(tmp, name + ".npz")])
+                 for name in VI_CONFIGS}
+        for name, proc in procs.items():
+            if proc.wait() != 0:
+                raise RuntimeError(f"the reference's VI run {name} failed")
+            for k, v in load(os.path.join(tmp, name + ".npz")).items():
+                out[f"{name}_{k}"] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tracking step and cores (tests/test_torch_tracking.py, tests/test_torch_cores.py)
+# ---------------------------------------------------------------------------
+
+FRONT_GOLDEN = os.path.join(HERE, "torch_front_golden.npz")
+FRONT_DOC = """The reference's front end on tests/torch_port_scene.py's half-size arc
+(uint8 frames, 300 features), what the two tests compared with live JAX runs
+before: `track_*`, the 8-level extractor's features of frame 0 and
+`make_tracking_step` over frames 1-5 from the true frame-0 pose on the map
+lifted from those features; `cores_*`, the 4-level pipeline core's features
+of frame 0 (on an empty map), then the pipeline core on frames 1-5 (each
+predicted from the reference's previous estimate), on frame 1 yawed by 0.1
+rad (the 30 px retry, with the 15 px match count), and the streaming core on
+frames 1-5 and a blank frame, with its carries."""
+TRACK_FRAMES = 5
+CORE_LEVELS = 4
+_FEAT_FIELDS = ("xy", "response", "angle", "level", "desc01", "valid")
+_CORE_FIELDS = ("xy", "fdesc", "pf", "r", "t", "inlier", "visible")
+
+
+def _yaw(angle):
+    c, s_ = np.cos(angle), np.sin(angle)
+    return np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+
+
+def _core_fields(ref) -> dict:
+    """A core output's compared fields as numpy (fdesc as int8 +-1/0)."""
+    return dict(xy=np.asarray(ref[1]), fdesc=np.asarray(ref[2], np.float32).astype(np.int8),
+                pf=np.asarray(ref[3]), r=np.asarray(ref[4]), t=np.asarray(ref[5]),
+                inlier=np.asarray(ref[6]), visible=np.asarray(ref[7]))
+
+
+def make_front() -> dict:
+    import jax.numpy as jnp
+
+    from torch_port_scene import MAP_SLOTS, N_FEATURES, REF_CAM, reference_map, render_scene
+    from viorb_tpu.features.extractor import OrbExtractor as RefExtractor
+    from viorb_tpu.slam import kernels as ref_kernels
+    from viorb_tpu.slam import tracking_loop as ref_loop
+
+    out = {"reference_commit": np.array(reference_commit())}
+    _, r_wc, c_w, _, _, frames = render_scene(TRACK_FRAMES + 1)
+    img = [jnp.asarray(f.numpy()) for f in frames]
+    map_fields = ("xyz", "desc_pm1", "valid", "normal", "dmin", "dmax")
+
+    def ref_map(fields):
+        return [jnp.asarray(fields[k], jnp.bfloat16 if k == "desc_pm1" else None) for k in map_fields]
+
+    # the tracking step, 8 levels
+    feats = RefExtractor(n_features=N_FEATURES).extract(frames[0].numpy())
+    for k, v in zip(_FEAT_FIELDS, feats):
+        out[f"track_feats0_{k}"] = np.asarray(v)
+    dmap = ref_loop.DeviceMap(*ref_map(reference_map(r_wc[0], c_w[0], frames[0], feats=feats)))
+    carry = ref_loop.TrackCarry(*[jnp.asarray(np.asarray(x, np.float32)) for x in (
+        r_wc[0].T, -r_wc[0].T @ c_w[0], np.eye(3), np.zeros(3))])
+    step = ref_loop.make_tracking_step(REF_CAM, RefExtractor(n_features=N_FEATURES))
+    rows = []
+    for i in range(1, TRACK_FRAMES + 1):
+        carry, o = step(carry, img[i], dmap)
+        rows.append((np.asarray(o.r_cw), np.asarray(o.t_cw), int(o.n_inliers)))
+    for n, k in enumerate(("r_cw", "t_cw", "n_inliers")):
+        out[f"track_{k}"] = np.stack([np.asarray(r[n]) for r in rows])
+
+    # the pipeline and streaming cores, 4 levels
+    ext = RefExtractor(n_features=N_FEATURES, n_levels=CORE_LEVELS)
+    pipe = ref_loop.make_pipeline_track_core(REF_CAM, ext)
+    empty = [jnp.zeros((MAP_SLOTS, 3)), jnp.zeros((MAP_SLOTS, 256), jnp.bfloat16), jnp.zeros(MAP_SLOTS, bool),
+             jnp.zeros((MAP_SLOTS, 3)), jnp.zeros(MAP_SLOTS), jnp.ones(MAP_SLOTS)]
+    r_pred, t_pred = r_wc[0].T, -r_wc[0].T @ c_w[0]
+    feats0 = pipe(img[0], jnp.asarray(r_pred), jnp.asarray(t_pred), *empty)[0]
+    for k, v in zip(_FEAT_FIELDS, feats0):
+        out[f"cores_feats0_{k}"] = np.asarray(v)
+    cmap = ref_map(reference_map(r_wc[0], c_w[0], frames[0], feats=feats0))
+    per = []
+    for i in range(1, TRACK_FRAMES + 1):
+        ref = pipe(img[i], jnp.asarray(r_pred), jnp.asarray(t_pred), *cmap)
+        per.append(dict(_core_fields(ref), nmatch=int(ref[8])))
+        r_pred, t_pred = np.array(ref[4]), np.array(ref[5])
+    for k in per[0]:
+        out[f"cores_pipe_{k}"] = np.stack([np.asarray(p[k]) for p in per])
+    r_off = _yaw(0.1) @ r_wc[1].T
+    t_off = _yaw(0.1) @ (-r_wc[1].T @ c_w[1])
+    ref = pipe(img[1], jnp.asarray(r_off), jnp.asarray(t_off), *cmap)
+    narrow = ref_kernels.match_by_projection(*cmap, jnp.asarray(r_off), jnp.asarray(t_off), ref[1], ref[2],
+                                             ref[0].valid, REF_CAM, jnp.float32(15.0))
+    for k, v in dict(_core_fields(ref), nmatch=int(ref[8]), narrow_nmatch=int(narrow[2])).items():
+        out[f"cores_retry_{k}"] = np.asarray(v)
+    stream = ref_loop.make_streaming_track_core(REF_CAM, ext)
+    carry = ref_loop.TrackCarry(*[jnp.asarray(np.asarray(x, np.float32)) for x in (
+        r_wc[0].T, -r_wc[0].T @ c_w[0], np.eye(3), np.zeros(3))])
+    per = []
+    for i in range(1, TRACK_FRAMES + 1):
+        carry, ref = stream(carry, img[i], *cmap)
+        per.append(dict(_core_fields(ref), ok=bool(ref[8]),
+                        **{"carry_" + k: np.asarray(v) for k, v in zip(carry._fields, carry)}))
+    for k in per[0]:
+        out[f"cores_stream_{k}"] = np.stack([np.asarray(p[k]) for p in per])
+    blank = jnp.asarray(np.full(frames[0].shape, 128, np.uint8))
+    frozen, ref = stream(carry, blank, *cmap)
+    out["cores_blank_ok"] = np.asarray(bool(ref[8]))
+    for k, v in zip(frozen._fields, frozen):
+        out[f"cores_blank_carry_{k}"] = np.asarray(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the VI optimizers and the VI init (tests/test_torch_vi_optim.py, tests/test_torch_vi_init.py)
+# ---------------------------------------------------------------------------
+
+OPTIM_GOLDEN = os.path.join(HERE, "torch_optim_golden.npz")
+OPTIM_DOC = """The reference's IMU preintegration and VI optimizers on
+tests/torch_vi_problems.py's seeded problems, whose live compiles take 4-15
+s each on a CPU: `imu_*`, `preintegrate` on one segment and
+`preintegrate_batch` on four at capacity 256 (one jit); `pose_*`,
+`pose_optimization_vi` (2 rounds x 5 iterations, as the VI core runs it)
+frame-to-keyframe (`pose_kf_*`) and frame-to-frame with the prior and the
+anchor optimized (`pose_ff_*`); `ba_*`, `vi_ba` and `vi_ba_gw` (6 LM
+iterations each) with the whole problem's inputs under `*_in_*`; `init_*`,
+`try_vi_init` on tests/test_vi_init.py's clean and biased keyframe chains."""
+POSE_ROUNDS, POSE_ITERS, BA_ITERS = 2, 5, 6
+INIT_FIXTURES = {"clean": dict(scale=2.5),
+                 "biased": dict(bias_g=np.array([0.02, -0.015, 0.03]), bias_a=np.array([0.15, -0.1, 0.2]),
+                                scale=1.8, n_kf=16)}
+
+
+def make_optim() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from test_vi_init import build_chain
+    from torch_vi_problems import ba_problem, imu_problem, pose_problem
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.imu import ImuBatch, NavState, preintegrate, preintegrate_batch
+    from viorb_tpu.optim import ba as rba
+    from viorb_tpu.optim.pose_only import PoseObs, ViPosePrior, pose_optimization_vi
+    from viorb_tpu.optim.reprojection import Extrinsics
+    from viorb_tpu.slam.vi_init import try_vi_init
+
+    cam = RefCamera(fx=225.0, fy=225.0, cx=188.0, cy=120.0, width=376, height=240)
+    out = {"reference_commit": np.array(reference_commit())}
+    j = jnp.asarray
+
+    ip = imu_problem()
+    out.update({f"imu_in_{k}": np.asarray(v) for k, v in ip.items()})
+
+    @jax.jit
+    def preint(b, bg, ba, t0, t1):
+        first = jax.tree.map(lambda x: x[0], b)
+        rest = jax.tree.map(lambda x: x[1:], b)
+        return preintegrate(first, bg, ba, t0[0], t1[0]), preintegrate_batch(rest, bg, ba, t0[1:], t1[1:])
+
+    one, many = preint(ImuBatch(j(ip["gyro"]), j(ip["acc"]), j(ip["t"]), j(ip["mask"])), j(ip["bg"]), j(ip["ba"]),
+                       j(ip["t0"]), j(ip["t1"]))
+    for tag, p_ in (("one", one), ("many", many)):
+        for f, x in zip(p_._fields, p_):
+            out[f"imu_{tag}_{f}"] = np.asarray(x)
+
+    pp = pose_problem()
+    out.update({f"pose_in_{k}": np.asarray(v) for k, v in pp.items()})
+    pre = preintegrate(ImuBatch.from_arrays(pp["gyro"], pp["acc"], pp["t"], capacity=256), j(pp["bg"]), j(pp["ba"]),
+                       j(pp["t_i"]), j(pp["t_j"]))
+
+    def nav(prefix):
+        return NavState(j(pp[prefix + "_p"]), j(pp[prefix + "_v"]), j(pp[prefix + "_r"]), j(pp["bg"]), j(pp["ba"]),
+                        j(pp["dbg"]), j(pp["dba"]))
+
+    obs = PoseObs(j(pp["points"]), j(pp["uv"]), j(pp["inv_sigma2"]), j(pp["valid"]))
+    ext = Extrinsics(j(pp["r_bc"]), j(pp["p_bc"]))
+    for tag, opt in (("kf", False), ("ff", True)):
+        prior = ViPosePrior(nav("nsi"), j(pp["prior_info"]), j(True)) if opt else None
+        ns_j, ns_i, inl, marg = pose_optimization_vi(
+            nav("nsj"), nav("nsi"), obs, cam, ext, pre, j(pp["gravity"]), j(pp["bias_info"]), prior=prior,
+            rounds=POSE_ROUNDS, iters_per_round=POSE_ITERS, optimize_i=opt)
+        for f, x in zip(NavState._fields, ns_j):
+            out[f"pose_{tag}_nsj_{f}"] = np.asarray(x)
+        for f, x in zip(NavState._fields, ns_i):
+            out[f"pose_{tag}_nsi_{f}"] = np.asarray(x)
+        out[f"pose_{tag}_inlier"] = np.asarray(inl)
+        out[f"pose_{tag}_marg"] = np.asarray(marg)
+
+    bp = ba_problem()
+    out.update({f"ba_in_{k}": np.asarray(v) for k, v in bp.items()})
+    pre = preintegrate_batch(ImuBatch(j(bp["gyro"]), j(bp["acc"]), j(bp["t"]), j(bp["mask"])), jnp.zeros(3),
+                             jnp.zeros(3), j(bp["t0"]), j(bp["t1"]))
+    k = bp["nav_p"].shape[0]
+    state = rba.ViBAState(NavState(*[j(bp["nav_" + f]) for f in NavState._fields]), j(bp["points"]))
+    bobs = rba.BAObservations(j(bp["kf_idx"].astype(np.int32)), j(bp["uv"]), j(bp["inv_sigma2"]), j(bp["valid"]))
+    chain = rba.ImuChain(pre, jnp.ones(k - 1, bool), j(bp["bias_info"]))
+    bext = Extrinsics(j(bp["r_bc"]), j(bp["p_bc"]))
+    res, chi2 = rba.vi_ba(state, bobs, cam, bext, chain, j(bp["gravity"]), j(bp["fixed"]), iters=BA_ITERS)
+    res_gw, g_gw, chi2_gw = rba.vi_ba_gw(state, bobs, cam, bext, chain, j(bp["gravity"]), j(bp["fixed"]),
+                                         iters=BA_ITERS)
+    for tag, r_, c_ in (("vi", res, chi2), ("gw", res_gw, chi2_gw)):
+        for f, x in zip(NavState._fields, r_.nav):
+            out[f"ba_{tag}_nav_{f}"] = np.asarray(x)
+        out[f"ba_{tag}_points"] = np.asarray(r_.points)
+        out[f"ba_{tag}_chi2"] = np.asarray(c_)
+    out["ba_gw_gravity"] = np.asarray(g_gw)
+
+    for tag, kw in INIT_FIXTURES.items():
+        p_c, r_wc, ts, batches, _ = build_chain(**kw)
+        r = try_vi_init(p_c, r_wc, ts, batches)
+        out[f"init_{tag}_success"] = np.asarray(r.success)
+        for f in ("scale", "gravity_w", "bias_g", "bias_a", "velocities", "condition_number"):
+            out[f"init_{tag}_{f}"] = np.asarray(getattr(r, f))
+    return out
+
+
+SETS = {"mono": (GOLDEN, lambda: make_mono()), "vi": (VI_GOLDEN, lambda: make_vi()),
+        "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim())}
 
 
 def spread(data: dict) -> list:
@@ -186,22 +553,38 @@ def load(path: str = GOLDEN) -> dict:
 
 
 def main(argv) -> int:
-    data = make()
-    if "--check" in argv:
-        want = load()
-        bad = sorted(k for k in set(data) | set(want)
-                     if k not in data or k not in want or not np.array_equal(data[k], want[k]))
-        print("golden reproduced: every array equal" if not bad else f"golden differs at {bad}")
-        print("\n".join(spread(want)))
-        return 1 if bad else 0
-    np.savez_compressed(GOLDEN, **data)
-    print("\n".join(spread(data)))
-    for name in CONFIGS:
-        print(f"{name}: init frame {int(data[name + '_init_frame'])}, "
-              f"{int(data[name + '_n_kfs'][-1])} keyframes, {int(data[name + '_n_points'][-1])} points, "
-              f"ATE {float(data[name + '_ate']):.4f} m")
-    print(f"wrote {GOLDEN} (reference package at {data['reference_commit']})")
-    return 0
+    if argv[:1] == ["--worker"]:  # one VI run, in a process of its own (make_vi)
+        np.savez_compressed(argv[2], **run_reference_vi(argv[1]))
+        return 0
+    check = "--check" in argv
+    names = [a for a in argv if a != "--check"] or list(SETS)
+    bad_sets = []
+    for name in names:
+        path, make = SETS[name]
+        data = make()
+        if check:
+            want = load(path)
+            bad = sorted(k for k in set(data) | set(want)
+                         if k not in data or k not in want or not np.array_equal(data[k], want[k], equal_nan=data[k].dtype.kind == "f"))
+            print(f"{name}: golden reproduced: every array equal" if not bad else f"{name}: golden differs at {bad}")
+            bad_sets += [name] if bad else []
+            data = want
+        else:
+            np.savez_compressed(path, **data)
+            print(f"wrote {path} (reference package at {data['reference_commit']})")
+        if name == "mono":
+            print("\n".join(spread(data)))
+            for cfg in CONFIGS:
+                print(f"{cfg}: init frame {int(data[cfg + '_init_frame'])}, "
+                      f"{int(data[cfg + '_n_kfs'][-1])} keyframes, {int(data[cfg + '_n_points'][-1])} points, "
+                      f"ATE {float(data[cfg + '_ate']):.4f} m")
+        if name == "vi":
+            for cfg in VI_CONFIGS:
+                print(f"{cfg}: VI init at frame {int(data[cfg + '_init_frame'])}, "
+                      f"{int(data[cfg + '_n_kfs'][-1])} keyframes, metric ATE {float(data[cfg + '_ate_metric']):.4f} m, "
+                      f"post-init {float(data[cfg + '_ate_post_metric']):.4f} / {float(data[cfg + '_ate_post_sim3']):.4f} m, "
+                      f"scale {float(data[cfg + '_scale_ratio']):.4f}")
+    return 1 if bad_sets else 0
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """The port's pipeline and streaming tracking cores against the JAX
 reference's, frame by frame from the same state: the half-size rendered arc
 (240x376), 300 features, a 1024-slot map, pose LM 4 x 10, 5 tracked frames,
-a pyramid of 4 levels (the reference compiles the front end once for each
-core, and that compile is most of this test's time and grows with the
-levels; tests/test_torch_tracking.py holds the 8-level front end inside a
-core to the reference).
+a pyramid of 4 levels (tests/test_torch_tracking.py holds the 8-level
+front end inside a core to the reference). The reference's core outputs on
+these frames come from tests/torch_front_golden.npz
+(tests/make_torch_goldens.py, set `front`): their live compiles took ~18 s
+of this test's ~21 s on a CPU.
 Also the 15 px -> 30 px retry (one frame whose prediction is displaced so
 that both packages take the 30 px branch), the carry frozen on a blank
 frame, the process-wide core cache, the launch counters' arithmetic through
@@ -28,10 +29,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from torch_port_scene import MAP_SLOTS, N_FEATURES, REF_CAM, reference_map, render_scene
+from make_torch_goldens import _CORE_FIELDS, _FEAT_FIELDS, CORE_LEVELS, FRONT_GOLDEN, TRACK_FRAMES, _yaw, load
+from torch_port_scene import N_FEATURES, reference_map, render_scene
+from viorb_tpu.features.extractor import FrameFeatures as RefFeatures
 from viorb_tpu.features.extractor import OrbExtractor as RefExtractor
-from viorb_tpu.slam import kernels as ref_kernels
-from viorb_tpu.slam import tracking_loop as ref_loop
 from viorb_tpu_torch import launch_counts
 from viorb_tpu_torch.cuda_graph import GraphedFunction, _flatten, _unflatten
 from viorb_tpu_torch.features import fast_cuda
@@ -48,9 +49,18 @@ from viorb_tpu_torch.slam.tracking_loop import (
 
 torch.set_num_threads(1)
 
-N_TRACKED = 5
-N_LEVELS = 4
-MAP_FIELDS = ("xyz", "desc_pm1", "valid", "normal", "dmin", "dmax")
+N_TRACKED = TRACK_FRAMES
+N_LEVELS = CORE_LEVELS
+CARRY_FIELDS = ("r_cw", "t_cw", "vel_r", "vel_t")
+
+
+def _ref_out(gold, prefix, i=None):
+    """A reference core output from the golden, laid out as the core's tuple
+    (feats, xy, fdesc, pf, r_new, t_new, inlier, visible, nmatch / ok); the
+    features are not kept."""
+    take = (lambda k: gold[prefix + k]) if i is None else (lambda k: gold[prefix + k][i])
+    last = "nmatch" if prefix + "nmatch" in gold else "ok"
+    return (None, *[take(k) for k in _CORE_FIELDS], take(last))
 
 
 def _rot_diff(r, r_ref):
@@ -74,16 +84,11 @@ def _assert_frame_agrees(tag, out, ref):
     assert (out[7].numpy() == np.asarray(ref[7])).mean() >= 0.995, tag
 
 
-def _yaw(angle):
-    c, s = np.cos(angle), np.sin(angle)
-    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-
-
-def _pipeline_core_matches_reference(scene, fields, ref_map, dmap, core, ref_core):
+def _pipeline_core_matches_reference(scene, gold, dmap, core):
     _, r_wc, c_w, _, _, frames = scene
     r_pred, t_pred = r_wc[0].T, -r_wc[0].T @ c_w[0]
     for i in range(1, N_TRACKED + 1):
-        ref = ref_core(jnp.asarray(frames[i].numpy()), jnp.asarray(r_pred), jnp.asarray(t_pred), *ref_map)
+        ref = _ref_out(gold, "cores_pipe_", i - 1)
         out = core(frames[i], torch.from_numpy(r_pred), torch.from_numpy(t_pred), *dmap)
         _assert_frame_agrees(("pipeline", i), out, ref)
         assert int(out[8]) >= 20 and abs(int(out[8]) - int(ref[8])) <= 1
@@ -94,18 +99,15 @@ def _pipeline_core_matches_reference(scene, fields, ref_map, dmap, core, ref_cor
     # so 15 px finds fewer than 20 matches and 30 px rescues the frame
     r_off = _yaw(0.1) @ r_wc[1].T
     t_off = _yaw(0.1) @ (-r_wc[1].T @ c_w[1])
-    ref = ref_core(jnp.asarray(frames[1].numpy()), jnp.asarray(r_off), jnp.asarray(t_off), *ref_map)
+    ref = _ref_out(gold, "cores_retry_")
     out = core(frames[1], torch.from_numpy(r_off), torch.from_numpy(t_off), *dmap)
     feats, xy, fdesc = out[0], out[1], out[2]
     narrow = match_by_projection(*dmap, torch.from_numpy(r_off), torch.from_numpy(t_off),
                                  xy, fdesc, feats.valid, scene[0], 15.0)
     wide = match_by_projection(*dmap, torch.from_numpy(r_off), torch.from_numpy(t_off),
                                xy, fdesc, feats.valid, scene[0], 30.0)
-    ref_narrow = ref_kernels.match_by_projection(
-        *ref_map, jnp.asarray(r_off), jnp.asarray(t_off), ref[1], ref[2], ref[0].valid, REF_CAM,
-        jnp.float32(15.0),
-    )
-    assert int(narrow[2]) < 20 and int(ref_narrow[2]) < 20, (int(narrow[2]), int(ref_narrow[2]))
+    ref_narrow = int(gold["cores_retry_narrow_nmatch"])
+    assert int(narrow[2]) < 20 and ref_narrow < 20, (int(narrow[2]), ref_narrow)
     assert int(wide[2]) > 50 and int(out[8]) == int(wide[2]) and torch.equal(out[3], wide[0])
     _assert_frame_agrees(("pipeline", "retry"), out, ref)
     assert abs(int(out[8]) - int(ref[8])) <= 1
@@ -116,16 +118,16 @@ def _pipeline_core_matches_reference(scene, fields, ref_map, dmap, core, ref_cor
     assert int(narrow[2]) >= 20 and torch.equal(out[3], narrow[0]) and int(out[8]) == int(narrow[2])
 
 
-def _streaming_core_matches_reference(scene, fields, ref_map, dmap, core, ref_core):
+def _streaming_core_matches_reference(scene, gold, dmap, core):
     _, r_wc, c_w, _, _, frames = scene
     start = dict(
         r_cw=r_wc[0].T, t_cw=-r_wc[0].T @ c_w[0],
         vel_r=np.eye(3, dtype=np.float32), vel_t=np.zeros(3, np.float32),
     )
-    ref_carry = ref_loop.TrackCarry(*[jnp.asarray(np.asarray(start[k], np.float32)) for k in start])
     carry = carry_from_numpy(**start, device="cpu")
     for i in range(1, N_TRACKED + 1):
-        ref_carry, ref = ref_core(ref_carry, jnp.asarray(frames[i].numpy()), *ref_map)
+        ref = _ref_out(gold, "cores_stream_", i - 1)
+        ref_carry = [gold["cores_stream_carry_" + k][i - 1] for k in CARRY_FIELDS]
         carry, out = core(carry, frames[i], *dmap)
         _assert_frame_agrees(("streaming", i), out, ref)
         assert bool(out[8]) and bool(ref[8])
@@ -137,9 +139,9 @@ def _streaming_core_matches_reference(scene, fields, ref_map, dmap, core, ref_co
     # a blank frame has no features: the core reports failure and the
     # carry stays exactly as it was, in both packages
     blank = np.full(frames[0].shape, 128, np.uint8)
-    ref_frozen, ref = ref_core(ref_carry, jnp.asarray(blank), *ref_map)
+    ref_frozen = [gold["cores_blank_carry_" + k] for k in CARRY_FIELDS]
     frozen, out = core(carry, torch.from_numpy(blank), *dmap)
-    assert not bool(out[8]) and not bool(ref[8]) and int(out[6].sum()) == 0
+    assert not bool(out[8]) and not bool(gold["cores_blank_ok"]) and int(out[6].sum()) == 0
     for got, was, ref_got, ref_was in zip(frozen, carry, ref_frozen, ref_carry):
         assert torch.equal(got, was)
         np.testing.assert_array_equal(np.asarray(ref_got), np.asarray(ref_was))
@@ -212,33 +214,16 @@ def _cores_are_cached_and_eager_on_cpu(cam):
     assert torch.equal(out[0].t_cw, carry.t_cw + 1) and torch.equal(out[1], torch.full((2,), 2.0))
 
 
-def _empty_ref_map():
-    return [
-        jnp.zeros((MAP_SLOTS, 3)), jnp.zeros((MAP_SLOTS, 256), jnp.bfloat16), jnp.zeros(MAP_SLOTS, bool),
-        jnp.zeros((MAP_SLOTS, 3)), jnp.zeros(MAP_SLOTS), jnp.ones(MAP_SLOTS),
-    ]
-
-
 def test_tracking_cores_match_reference():
     scene = render_scene(N_TRACKED + 1)
     cam, r_wc, c_w, *_, frames = scene
     _cores_are_cached_and_eager_on_cpu(cam)
     _graph_launch_counts_add_up()
     extractor = OrbExtractor(n_features=N_FEATURES, n_levels=N_LEVELS)
-    ref_extractor = RefExtractor(n_features=N_FEATURES, n_levels=N_LEVELS)
-    ref_pipeline = ref_loop.make_pipeline_track_core(REF_CAM, ref_extractor)
-    # frame 0's features come out of the reference's pipeline core, run on an
-    # empty map: the core is compiled anyway, the extractor alone would be a
-    # second compile of the same program
-    r_cw0, t_cw0 = r_wc[0].T, -r_wc[0].T @ c_w[0]
-    feats0 = ref_pipeline(jnp.asarray(frames[0].numpy()), jnp.asarray(r_cw0), jnp.asarray(t_cw0), *_empty_ref_map())[0]
-    fields = reference_map(r_wc[0], c_w[0], frames[0], feats=feats0)
-    ref_map = [jnp.asarray(fields[k], jnp.bfloat16 if k == "desc_pm1" else None) for k in MAP_FIELDS]
-    dmap = device_map_from_numpy(**fields, device="cpu")
-    _pipeline_core_matches_reference(
-        scene, fields, ref_map, dmap, make_pipeline_track_core(cam, extractor), ref_pipeline
-    )
-    _streaming_core_matches_reference(
-        scene, fields, ref_map, dmap,
-        make_streaming_track_core(cam, extractor), ref_loop.make_streaming_track_core(REF_CAM, ref_extractor),
-    )
+    gold = load(FRONT_GOLDEN)
+    # frame 0's features came out of the reference's pipeline core, run on an
+    # empty map (tests/make_torch_goldens.py)
+    feats0 = RefFeatures(*[jnp.asarray(gold["cores_feats0_" + k]) for k in _FEAT_FIELDS])
+    dmap = device_map_from_numpy(**reference_map(r_wc[0], c_w[0], frames[0], feats=feats0), device="cpu")
+    _pipeline_core_matches_reference(scene, gold, dmap, make_pipeline_track_core(cam, extractor))
+    _streaming_core_matches_reference(scene, gold, dmap, make_streaming_track_core(cam, extractor))

@@ -22,6 +22,11 @@ keyframe at least every 5 frames. The checks:
     keyframe, the device carry is T_f' = T_f o (T_kf_old^-1 o T_kf_new),
     held to tests/test_batched_mapping.py's numpy formula, and the
     frame-to-keyframe relative pose and the velocity are unchanged;
+  * a frame of a new dtype: a zero-lag streaming run fed f32 frames that
+    switches to uint8 frames of the same (integral) images at frame 4
+    stops its threads, captures again (`recaptures` 1) and restarts them,
+    and its outcome is equal, frame by frame, to the run fed f32 frames
+    throughout;
   * a blackout: frames 5-7 blank (0.6 s, as tests/test_streaming.py's six
     frames at dt=0.1) at the default depth 2; the frozen carry hands
     control back to the synchronous fallback chain and the run recovers:
@@ -43,15 +48,17 @@ torch.set_num_threads(1)
 
 INLIER_TOL, POINT_TOL = 6, 12  # tests/test_streaming.py's
 BLACKOUT, BLACKOUT_FRAMES, RECOVERED_FROM, MIN_RECOVERED = range(5, 8), 16, 9, 4
+SWITCH_FRAMES, SWITCH_AT = 7, 4
 
 
-def _rows(seq, cfg, **mode):
+def _rows(seq, cfg, images=None, **mode):
     """(state, inliers, live keyframe ids, live points) after each of the
-    first STREAM_FRAMES frames; a streaming run is flushed after each."""
+    first STREAM_FRAMES frames (or of `images`); a streaming run is flushed
+    after each."""
     slam = MonoSlam(seq.cam, device="cpu", **mode, **{k: cfg[k] for k in SLAM_KEYS})
     rows = []
     try:
-        for image, ts in zip(seq.images[:STREAM_FRAMES], seq.timestamps[:STREAM_FRAMES]):
+        for image, ts in zip(images or seq.images[:STREAM_FRAMES], seq.timestamps[:STREAM_FRAMES]):
             slam.process_frame(image, float(ts))
             slam.flush_stream()
             slam.wait_mapping_idle()
@@ -133,6 +140,17 @@ def _reanchor_matches_formula(slam):
     assert len(slam.carry_deltas) == deltas + 1
 
 
+def _dtype_switch_recaptures(seq, cfg):
+    frames = [synthetic.to_uint8(x) for x in seq.images[:SWITCH_FRAMES]]
+    runs = []
+    for switch in (SWITCH_FRAMES, SWITCH_AT):
+        images = [f if i >= switch else f.float() for i, f in enumerate(frames)]
+        slam, rows = _rows(seq, cfg, images, streaming=True, streaming_depth=1)
+        assert slam.recaptures == (switch < SWITCH_FRAMES) and slam._worker is None, slam.recaptures
+        runs.append(rows)
+    assert runs[0] == runs[1], runs
+
+
 def _blackout_recovers(seq, cfg):
     slam = MonoSlam(seq.cam, device="cpu", streaming=True, streaming_depth=2, **{k: cfg[k] for k in SLAM_KEYS})
     blank = torch.zeros_like(seq.images[0])
@@ -170,4 +188,5 @@ def test_streaming_matches_reference_and_lockstep():
     assert len(ref_stream) == STREAM_FRAMES
     _near_reference_streaming(stream, ref_stream, ref_lock)
     _reanchor_matches_formula(slam)
+    _dtype_switch_recaptures(seq, cfg)
     _blackout_recovers(seq, cfg)

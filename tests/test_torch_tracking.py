@@ -4,6 +4,12 @@ features, a 1024-slot map lifted from frame 0 with ground-truth depth, and
 5 tracked frames. Also the port's renderer, its map builder, and the rule
 that the port never imports JAX.
 
+The reference's 8-level extractor and tracking step outputs on these frames
+come from tests/torch_front_golden.npz (tests/make_torch_goldens.py, set
+`front`): their live compiles took ~20 s of this test's ~23 s on a CPU.
+The map is lifted from the golden's frame-0 features by the reference's own
+code, and the tolerances are the live test's.
+
 One test per file: see tests/test_torch_fast.py."""
 
 import os
@@ -14,8 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from make_torch_goldens import _FEAT_FIELDS, FRONT_GOLDEN, TRACK_FRAMES, load
 from torch_port_scene import MAP_SLOTS, N_FEATURES, REF_CAM, reference_map, render_scene
-from viorb_tpu.features.extractor import OrbExtractor as RefExtractor
+from viorb_tpu.features.extractor import FrameFeatures as RefFeatures
 from viorb_tpu.io import synthetic as ref_synthetic
 from viorb_tpu.slam import tracking_loop as ref_loop
 from viorb_tpu_torch.features.extractor import OrbExtractor
@@ -25,7 +32,12 @@ from viorb_tpu_torch.slam.tracking_loop import identity_carry, make_tracking_ste
 
 torch.set_num_threads(1)
 
-N_TRACKED = 5
+N_TRACKED = TRACK_FRAMES
+
+
+def _ref_features(gold, prefix):
+    """The reference's FrameFeatures of frame 0 from the golden."""
+    return RefFeatures(*[jnp.asarray(gold[prefix + k]) for k in _FEAT_FIELDS])
 
 
 def _renderer_matches_reference(scene):
@@ -42,23 +54,15 @@ def _renderer_matches_reference(scene):
     np.testing.assert_allclose(img, ref_img, rtol=0, atol=0.05)
 
 
-def _steps_match_reference(scene):
+def _steps_match_reference(scene, gold):
     """Per frame: pose within 2e-3 rad and 5e-3 m of the reference's step,
     inlier count within 5 %."""
     cam, r_wc, c_w, _, planes, frames = scene
-    fields = reference_map(r_wc[0], c_w[0], frames[0])
-    ref_map = ref_loop.DeviceMap(
-        *[jnp.asarray(fields[k], jnp.bfloat16 if k == "desc_pm1" else None)
-          for k in ref_loop.DeviceMap._fields]
-    )
+    fields = reference_map(r_wc[0], c_w[0], frames[0], feats=_ref_features(gold, "track_feats0_"))
     start = dict(
         r_cw=r_wc[0].T, t_cw=-r_wc[0].T @ c_w[0],
         vel_r=np.eye(3, dtype=np.float32), vel_t=np.zeros(3, np.float32),
     )
-    ref_carry = ref_loop.TrackCarry(
-        *[jnp.asarray(np.asarray(start[k], np.float32)) for k in ref_loop.TrackCarry._fields]
-    )
-    ref_step = ref_loop.make_tracking_step(REF_CAM, RefExtractor(n_features=N_FEATURES))
     carry = carry_from_numpy(**start, device="cpu")
     dmap = device_map_from_numpy(**fields, device="cpu")
     step = make_tracking_step(cam, OrbExtractor(n_features=N_FEATURES))
@@ -72,22 +76,21 @@ def _steps_match_reference(scene):
     np.testing.assert_allclose(own.xyz.numpy(), fields["xyz"], rtol=0, atol=1e-3)
 
     for i in range(1, N_TRACKED + 1):
-        ref_carry, ref_out = ref_step(ref_carry, jnp.asarray(frames[i].numpy()), ref_map)
         carry, out = step(carry, frames[i], dmap)
-        ref_r = np.asarray(ref_out.r_cw, np.float64)
+        ref_r = gold["track_r_cw"][i - 1].astype(np.float64)
         d_rot = np.linalg.norm(out.r_cw.numpy().astype(np.float64) @ ref_r.T - np.eye(3)) / np.sqrt(2)
-        d_t = np.abs(out.t_cw.numpy() - np.asarray(ref_out.t_cw)).max()
-        n_ref, n_out = int(ref_out.n_inliers), int(out.n_inliers)
+        d_t = np.abs(out.t_cw.numpy() - gold["track_t_cw"][i - 1]).max()
+        n_ref, n_out = int(gold["track_n_inliers"][i - 1]), int(out.n_inliers)
         assert d_rot <= 2e-3 and d_t <= 5e-3, (i, d_rot, d_t)
         assert abs(n_out - n_ref) <= 0.05 * n_ref and n_ref > 30, (i, n_out, n_ref)
 
 
-def _interop_carries_reference_state(scene):
+def _interop_carries_reference_state(scene, gold):
     """The reference's features, carry and camera, moved through interop,
     are the same state on the port's side."""
     cam, *_, frames = scene
     assert tuple(cam) == tuple(REF_CAM)
-    ref = RefExtractor(n_features=N_FEATURES).extract(frames[0].numpy())
+    ref = _ref_features(gold, "track_feats0_")
     feats = features_from_numpy(*[np.asarray(x) for x in ref], device="cpu")
     np.testing.assert_array_equal(
         feats.descriptors_pm1().numpy(), np.asarray(ref.descriptors_pm1(jnp.float32))
@@ -100,7 +103,7 @@ def _interop_carries_reference_state(scene):
 def _port_imports_no_jax():
     """Every port module imports without JAX or the JAX package: the GPU
     host has neither. The walk reaches the map store, its checkpoints and
-    native helpers, the ATE, PnP and MonoSlam modules too."""
+    native helpers, the ATE, PnP, MonoSlam and the VI modules too."""
     code = (
         "import pkgutil, importlib, sys, viorb_tpu_torch\n"
         "for m in pkgutil.walk_packages(viorb_tpu_torch.__path__, 'viorb_tpu_torch.'):\n"
@@ -112,7 +115,8 @@ def _port_imports_no_jax():
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "new = ['viorb_tpu_torch.' + m for m in ('mapping.map', 'mapping.serialize', 'native',\n"
-        "       'eval.ate', 'solvers.pnp', 'slam.mono', 'io.synthetic')]\n"
+        "       'eval.ate', 'solvers.pnp', 'slam.mono', 'io.synthetic', 'imu.types', 'imu.navstate',\n"
+        "       'imu.preintegration', 'optim.imu_factors', 'slam.vi_init', 'slam.mono_vi', 'eval.gravity')]\n"
         "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('viorb_tpu_torch')]))\n"
     )
@@ -129,6 +133,7 @@ def _port_imports_no_jax():
 def test_tracking_step_matches_reference():
     _port_imports_no_jax()
     scene = render_scene(N_TRACKED + 1)
+    gold = load(FRONT_GOLDEN)
     _renderer_matches_reference(scene)
-    _interop_carries_reference_state(scene)
-    _steps_match_reference(scene)
+    _interop_carries_reference_state(scene, gold)
+    _steps_match_reference(scene, gold)

@@ -53,8 +53,9 @@ then start the threads. A caller declares each thread that works on the
 card with `register_thread()` before starting it and `unregister_thread()`
 after joining it; while any is declared, a capture raises RuntimeError.
 `MonoSlam` captures the cores its mode replays at the first frame's shapes
-(`GraphedFunction.prepare`), then starts its threads; a frame of another
-shape or dtype then raises instead of capturing beside them.
+(`GraphedFunction.prepare`), then starts its threads; at a frame of another
+shape or dtype it stops them (quiescent: nothing in flight, nothing queued),
+captures at the new key and starts them again.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 The system has no weights: its state is the map, the local map, the carry,
 the camera, the extractor configuration and, for bundle adjustment, the
-keyframe poses, landmarks and observation grid. These functions take that
+keyframe poses, landmarks and observation grid, and for the VI path the
+NavStates, IMU sample batches and preintegration chains. These functions take that
 state as plain numpy arrays and numbers — for instance the JAX package's
 arrays after `np.asarray` — so the port can start from exactly the state
 another implementation holds. `device=None` puts the state on the card
@@ -19,8 +20,11 @@ import torch
 from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import FrameFeatures
 from viorb_tpu_torch.geometry.camera import PinholeCamera
+from viorb_tpu_torch.imu.navstate import NavState
+from viorb_tpu_torch.imu.preintegration import PreintegratedImu
+from viorb_tpu_torch.imu.types import ImuBatch
 from viorb_tpu_torch.mapping.serialize import map_store_from_arrays  # noqa: F401  (the map's state)
-from viorb_tpu_torch.optim.ba import BAObservations, VisionBAState
+from viorb_tpu_torch.optim.ba import BAObservations, ImuChain, ViBAState, VisionBAState
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap, TrackCarry
 
 
@@ -112,3 +116,40 @@ def ba_observations_from_numpy(kf_idx, uv, inv_sigma2, valid, device=None) -> BA
 def vision_ba_state_from_numpy(r_cw, t_cw, points, device=None) -> VisionBAState:
     device = resolve_device(device)
     return VisionBAState(_f32(r_cw, device), _f32(t_cw, device), _f32(points, device))
+
+
+def nav_state_from_numpy(p, v, r, bg, ba, dbg, dba, device=None) -> NavState:
+    """A NavState (any leading batch dims) from its fields as arrays."""
+    device = resolve_device(device)
+    return NavState(*(_f32(x, device) for x in (p, v, r, bg, ba, dbg, dba)))
+
+
+def imu_batch_from_numpy(gyro, acc, t, mask, device=None) -> ImuBatch:
+    """A padded ImuBatch (any leading batch dims) from its arrays; rows with
+    mask False are padding."""
+    device = resolve_device(device)
+    return ImuBatch(_f32(gyro, device), _f32(acc, device), _f32(t, device), _bool(mask, device))
+
+
+def imu_chain_from_numpy(pre: Mapping[str, Any], valid, bias_cov_inv_diag, idx_i=None, idx_j=None,
+                         device=None) -> ImuChain:
+    """An ImuChain from its preintegrated edges (`pre`: a mapping of the
+    PreintegratedImu field names to arrays with leading dim E), the edge
+    mask, the bias-walk information diagonal and, for arbitrary edges,
+    their keyframe slots."""
+    device = resolve_device(device)
+    return ImuChain(
+        pre=PreintegratedImu(*(_f32(pre[k], device) for k in PreintegratedImu._fields)),
+        valid=_bool(valid, device),
+        bias_cov_inv_diag=_f32(bias_cov_inv_diag, device),
+        idx_i=None if idx_i is None else _i64(idx_i, device),
+        idx_j=None if idx_j is None else _i64(idx_j, device),
+    )
+
+
+def vi_ba_state_from_numpy(nav: Mapping[str, Any], points, device=None) -> ViBAState:
+    """A ViBAState from the K keyframes' NavState fields (a mapping of the
+    field names to (K,...) arrays) and the (M,3) landmarks."""
+    device = resolve_device(device)
+    return ViBAState(nav_state_from_numpy(**{k: nav[k] for k in NavState._fields}, device=device),
+                     _f32(points, device))

@@ -1,12 +1,12 @@
 """Synthetic textured-room renderer with exact ground truth (port of
 viorb_tpu/io/synthetic.py: the room, the 'arc' trajectory, the frame
-renderer and `make_sequence` for the arc), plus the tracking benchmark's
-map lifted from frame 0.
+renderer and `make_sequence` for the arc, the arc's analytic IMU), plus the
+tracking benchmark's map lifted from frame 0.
 
 The room and the trajectory stay numpy, seeded as in the reference, so
 both packages see the same world. `render_frame` is torch and runs on the
 device it is given: ray-plane intersection and bilinear texture sampling,
-fully vectorized. No disk cache and no IMU.
+fully vectorized. No disk cache.
 """
 
 from __future__ import annotations
@@ -223,6 +223,66 @@ def make_trajectory(n_frames: int, dt: float = 0.05) -> Tuple[np.ndarray, np.nda
     return rs.astype(np.float32), cs.astype(np.float32)
 
 
+GRAVITY_W = np.array([0.0, 0.0, -9.81], np.float32)
+
+
+class SyntheticImu(NamedTuple):
+    """Dense IMU stream for a trajectory (body frame = camera frame)."""
+
+    t: np.ndarray  # (S,)
+    gyro: np.ndarray  # (S,3) rad/s, body frame
+    acc: np.ndarray  # (S,3) m/s^2 specific force (includes -g)
+    velocity: np.ndarray  # (S,3) ground-truth world velocity at the samples
+
+
+def make_imu(
+    n_frames: int,
+    frame_dt: float,
+    hz: float = 200.0,
+    bias_g: Optional[np.ndarray] = None,
+    bias_a: Optional[np.ndarray] = None,
+    noise_g: float = 0.0,
+    noise_a: float = 0.0,
+    seed: int = 1,
+    kind: str = "arc",
+) -> SyntheticImu:
+    """Analytic IMU of the 'arc' trajectory (the only kind ported), by dense
+    finite differences of the exact pose spline (O(h^2) at 2 kHz internal
+    sampling), downsampled to `hz`; optional constant biases and seeded
+    white noise."""
+    if kind != "arc":
+        raise NotImplementedError(f"synthetic trajectory kind {kind!r} is not ported: only 'arc'")
+    rng = np.random.default_rng(seed)
+    t_end = (n_frames - 1) * frame_dt
+    h = 1.0 / 2000.0
+    tt = np.arange(0.0, t_end + h, h)
+    R, c = _arc_pose_params(tt)
+    v = np.gradient(c, h, axis=0)
+    a_w = np.gradient(v, h, axis=0)
+    # body rates: omega_hat = R^T dR/dt
+    dR = np.gradient(R, h, axis=0)
+    w_hat = np.einsum("nji,njk->nik", R, dR)
+    omega_body = np.stack([w_hat[:, 2, 1], w_hat[:, 0, 2], w_hat[:, 1, 0]], axis=1)
+    step = int(round(2000.0 / hz))
+    idx = np.arange(0, len(tt), step)
+    gyro = omega_body[idx]
+    acc_body = np.einsum("nji,nj->ni", R[idx], a_w[idx] - GRAVITY_W)
+    if bias_g is not None:
+        gyro = gyro + bias_g
+    if bias_a is not None:
+        acc_body = acc_body + bias_a
+    if noise_g > 0:
+        gyro = gyro + rng.normal(0, noise_g, gyro.shape)
+    if noise_a > 0:
+        acc_body = acc_body + rng.normal(0, noise_a, acc_body.shape)
+    return SyntheticImu(
+        t=tt[idx].astype(np.float32),
+        gyro=gyro.astype(np.float32),
+        acc=acc_body.astype(np.float32),
+        velocity=v[idx].astype(np.float32),
+    )
+
+
 class SyntheticSequence(NamedTuple):
     images: List[torch.Tensor]  # (H,W) f32 0..255, on the device they were rendered on
     r_wc: np.ndarray  # (T,3,3) ground-truth camera-to-world rotations
@@ -240,8 +300,8 @@ def make_sequence(
 ) -> SyntheticSequence:
     """The reference's rendered 'arc' sequence, rendered on `device` (the
     card unless the caller names another), with no disk cache; the frames
-    are f32, as the reference's. The other trajectory kinds, depth, noise
-    and the IMU are not ported yet."""
+    are f32, as the reference's. The other trajectory kinds, depth and
+    noise are not ported yet; the IMU is `make_imu`."""
     cam = cam or PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
     r_wc, c_w = make_trajectory(n_frames, dt)
     planes = stack_planes(default_room(seed), device=device)

@@ -52,8 +52,10 @@ class KeyFrameData:
     point_idx: np.ndarray  # (N,) int32 map-point id per feature (-1 none)
     # stereo: right-image u per feature (-1 = no stereo match)
     ur: Optional[np.ndarray] = None
-    # VI state (filled post VI-init; reference KeyFrame NavState): carried
-    # through save/load as the arrays it holds; nothing in the port fills it
+    # VI fields (reference KeyFrame's NavState and IMU segment), filled by
+    # MonoViSlam: "state", the keyframe's NavState with numpy fields (after
+    # VI init); "imu_t" (S,), "imu_g" (S,3), "imu_a" (S,3), the IMU samples
+    # since the previous chain keyframe (prev_kf / next_kf link the chain)
     nav: Optional[dict] = None
     imu_t0: float = 0.0
     prev_kf: int = -1

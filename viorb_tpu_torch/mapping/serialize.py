@@ -14,6 +14,7 @@ from typing import Mapping
 
 import numpy as np
 
+from viorb_tpu_torch.imu.navstate import NavState
 from viorb_tpu_torch.mapping.map import KeyFrameData, MapStore
 
 _PT_FIELDS = (
@@ -29,8 +30,9 @@ _IMU_KEYS = ("imu_t", "imu_g", "imu_a")
 
 def map_arrays(m: MapStore, extra: dict | None = None) -> dict:
     """The checkpoint's arrays of `m`, by .npz key. A keyframe's VI state,
-    `nav["state"]`, is a dict keyed by `_NAV_KEYS` here (the reference's
-    NavState fields p, v, r, bg, ba, dbg, dba in that order)."""
+    `nav["state"]` (a NavState), is stored field by field under `_NAV_KEYS`
+    (p, v, r, bg, ba, dbg, dba in that order), its IMU segment under
+    `_IMU_KEYS`."""
     data = {}
     if extra:
         for k, v in extra.items():
@@ -63,8 +65,8 @@ def map_arrays(m: MapStore, extra: dict | None = None) -> dict:
             ).reshape(-1, 2)
         if kf.nav:
             if "state" in kf.nav:
-                for name in _NAV_KEYS:
-                    data[p + "nav_" + name] = np.asarray(kf.nav["state"][name])
+                for name, val in zip(_NAV_KEYS, kf.nav["state"]):
+                    data[p + "nav_" + name] = np.asarray(val)
             for key in _IMU_KEYS:
                 if key in kf.nav:
                     data[p + "nav_" + key] = kf.nav[key]
@@ -87,7 +89,7 @@ def map_store_from_arrays(z: Mapping[str, np.ndarray]) -> MapStore:
         p = f"kf{i}_"
         nav = None
         if p + "nav_state_p" in z:
-            nav = {"state": {k: np.asarray(z[p + "nav_" + k]) for k in _NAV_KEYS}}
+            nav = {"state": NavState(*(np.array(z[p + "nav_" + k]) for k in _NAV_KEYS))}
         for key in _IMU_KEYS:
             if p + "nav_" + key in z:
                 nav = nav or {}

@@ -1,7 +1,7 @@
-"""Batched Levenberg-Marquardt vision bundle adjustment with an explicit
-Schur complement over the landmarks (port of viorb_tpu/optim/ba.py's
-vision BA; its visual-inertial BAs and the stereo residual are not ported
-yet).
+"""Batched Levenberg-Marquardt bundle adjustment with an explicit Schur
+complement over the landmarks (port of viorb_tpu/optim/ba.py: the vision
+BA, the visual-inertial BA and the VI BA with a free gravity direction; the
+stereo residual is not ported yet).
 
   * observations live in a LANDMARK-MAJOR grid (M landmarks x R observation
     slots, validity-masked): every per-landmark quantity (Hll, its inverse,
@@ -9,8 +9,13 @@ yet).
   * the pose-pose fill-in is accumulated into a dense (K*6, K*6) reduced
     camera matrix; windows are small (10-20 keyframes), so the reduced
     solve is a tiny Cholesky;
-  * Jacobians are analytic (optim/reprojection.py), where the reference
-    differentiates the residual with `jax.jacfwd`;
+  * Jacobians of the reprojection rows are analytic (optim/reprojection.py),
+    where the reference differentiates the residual with `jax.jacfwd`; the
+    few IMU rows (one per keyframe edge) are differentiated with
+    `torch.func.jacfwd`, vmapped over the edges, as the reference does;
+  * the VI BAs add the preintegration and bias random-walk edges of an
+    `ImuChain` to the same reduced system at block size 15, and the
+    gravity-vertex BA appends a 2-DoF gravity-direction block;
   * Huber weights and chi2 outlier gating between two optimization phases.
 
 The reference buckets per-observation blocks by keyframe with one-hot
@@ -19,9 +24,9 @@ matmuls, because scatters serialize on a TPU. Here the same sums are
 reference's, the layout is not. On the card `index_add_` adds with atomics,
 so sums over a keyframe's observations come in a run-dependent order.
 
-Nothing in `vision_ba` syncs with the host: accept/reject is a
+Nothing in the BAs syncs with the host: accept/reject is a
 `torch.where`, the Cholesky is `cholesky_ex`. Keyframe indices must lie in
-[0, K): `vision_ba` clamps them once (an invalid slot has weight 0, so the
+[0, K): each BA clamps them once (an invalid slot has weight 0, so the
 keyframe it names receives zeros).
 """
 
@@ -31,10 +36,19 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from torch.func import jacfwd, vmap
+
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.geometry.so3 import exp_so3
-from viorb_tpu_torch.optim.reprojection import reproj_residual_jacobians_ba
-from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF, huber_weight
+from viorb_tpu_torch.imu.navstate import NavState, select_nav
+from viorb_tpu_torch.imu.preintegration import PreintegratedImu
+from viorb_tpu_torch.optim.imu_factors import bias_walk_residual, preint_residual, whitener_from_cov
+from viorb_tpu_torch.optim.reprojection import (
+    Extrinsics,
+    reproj_residual_jacobians_ba,
+    reproj_residual_jacobians_navstate,
+)
+from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF, CHI2_VI_9DOF, huber_weight
 
 _STEREO = "stereo observations (obs.ur) are not ported yet: the vision BA is monocular"
 
@@ -271,3 +285,320 @@ def vision_ba_two_phase(
     state, chi2 = vision_ba(state, obs, cam, fixed_kf, iters2, fixed_lm)
     obs = obs._replace(valid=obs.valid & (chi2 <= delta2))
     return state, obs
+
+
+# ---------------------------------------------------------------------------
+# visual-inertial BA
+# ---------------------------------------------------------------------------
+
+
+class ViBAState(NamedTuple):
+    nav: NavState  # leading dim K
+    points: torch.Tensor  # (M,3)
+
+
+class ImuChain(NamedTuple):
+    """Preintegrated IMU edges between keyframe slots.
+
+    Default (idx_i / idx_j None): the K-1 consecutive segments i -> i+1.
+    With explicit idx_i / idx_j (E,): arbitrary edges, e.g. multi-stride
+    composed preintegrations i -> i+s, whose long spans carry the scale
+    signal; bias random-walk edges apply only to stride-1 pairs."""
+
+    pre: PreintegratedImu  # leading dim E (or K-1)
+    valid: torch.Tensor  # (E,) bool
+    bias_cov_inv_diag: torch.Tensor  # (6,) information diagonal of the bias walk
+    idx_i: Optional[torch.Tensor] = None  # (E,) int64
+    idx_j: Optional[torch.Tensor] = None  # (E,) int64
+
+    def edges(self, k: int):
+        if self.idx_i is None:
+            i = torch.arange(k - 1, device=self.valid.device)
+            return i, i + 1
+        return self.idx_i, self.idx_j
+
+
+def _vi_blocks(state: ViBAState, obs: BAObservations, cam: PinholeCamera, ext: Extrinsics):
+    """Residuals and Jacobians on the (M,R) grid for NavState poses: r
+    (M,R,2), Jp (M,R,2,15) with zero V and bias columns, Jl (M,R,2,3)."""
+    r, J9, Jl = reproj_residual_jacobians_navstate(
+        state.nav.p[obs.kf_idx], state.nav.r[obs.kf_idx], state.points[:, None, :], obs.uv, cam, ext
+    )
+    return r, torch.cat([J9, torch.zeros_like(J9[..., :6])], dim=-1), Jl
+
+
+def _take(nav: NavState, idx: torch.Tensor) -> NavState:
+    return NavState(*[x[idx] for x in nav])
+
+
+def _edge_whiteners(chain: ImuChain) -> torch.Tensor:
+    """Whitening of each edge's 9-dim residual; padded (invalid) edges carry
+    zero covariance, replaced by I so the whitener stays finite (their
+    contributions are masked)."""
+    eye = torch.eye(9, dtype=chain.pre.cov.dtype, device=chain.pre.cov.device)
+    return whitener_from_cov(torch.where(chain.valid[:, None, None], chain.pre.cov, eye))
+
+
+def _edge_rows(ns_i: NavState, ns_j: NavState, pre: PreintegratedImu, Lt, gravity, basis=None):
+    """Per edge (leading dim E): the whitened preintegration residual (E,9)
+    and its Jacobians w.r.t. delta_i (E,9,15), delta_j (E,9,15; zero bias
+    columns) and, with a gravity basis (3,2), the 2-DoF gravity-direction
+    increment dg (E,9,2), with g(dg) = Exp(basis dg) g; then the bias-walk
+    residual (E,6) and its Jacobians (E,6,15) twice."""
+    dev = Lt.device
+
+    def one(ns_i, ns_j, pre, Lt):
+        z15 = torch.zeros(15, dtype=Lt.dtype, device=dev)
+        z9 = torch.zeros(9, dtype=Lt.dtype, device=dev)
+
+        # increments with a leading dim of 1 (imu_factors.py's docstring)
+        def wres(di, dj9, dg):
+            g = gravity if basis is None else exp_so3((basis @ dg)[None])[0] @ gravity
+            r = Lt @ preint_residual(di[None], dj9[None], ns_i, ns_j, pre, g)[0]
+            return r, r
+
+        def bres(di, dj):
+            r = bias_walk_residual(di[None], dj[None], ns_i, ns_j)[0]
+            return r, r
+
+        z2 = torch.zeros(2, dtype=Lt.dtype, device=dev)
+        argnums = (0, 1) if basis is None else (0, 1, 2)
+        J, r = jacfwd(wres, argnums=argnums, has_aux=True)(z15, z9, z2)
+        (Bi, Bj), rb = jacfwd(bres, argnums=(0, 1), has_aux=True)(z15, z15)
+        Jj = torch.cat([J[1], torch.zeros_like(J[1][:, :6])], dim=-1)
+        Jg = J[2] if basis is not None else torch.zeros_like(J[0][:, :2])
+        return r, J[0], Jj, Jg, rb, Bi, Bj
+
+    return vmap(one)(ns_i, ns_j, pre, Lt)
+
+
+def _vi_imu_system(nav: NavState, chain: ImuChain, gravity, k: int, basis=None):
+    """The preintegration and bias-walk edges' contributions to the reduced
+    system, as (K*15, K*15) and (K*15,) in its layout; with a gravity basis
+    also the pose-gravity coupling C (K*15, 2), Hgg (2,2) and g_g (2,)."""
+    d = 15
+    idx_i, idx_j = chain.edges(k)
+    ns_i, ns_j = _take(nav, idx_i), _take(nav, idx_j)
+    r, Ji, Jj, Jg, rb, Bi, Bj = _edge_rows(ns_i, ns_j, chain.pre, _edge_whiteners(chain), gravity, basis)
+    dt = r.dtype
+    chi2 = torch.sum(r * r, dim=-1)
+    w = (huber_weight(chi2, CHI2_VI_9DOF) * chain.valid.to(dt))[:, None, None]
+    wJi, wJj = Ji * w, Jj * w
+    # the bias random walk couples consecutive keyframes only
+    consec = ((idx_j - idx_i) == 1).to(dt)
+    binfo = chain.bias_cov_inv_diag[None, :] * (chain.valid.to(dt) * consec)[:, None]  # (E,6)
+    bBi, bBj = Bi * binfo[..., None], Bj * binfo[..., None]
+
+    def outer(a, b):  # (E,c,i), (E,c,j) -> (E,i,j)
+        return torch.einsum("eci,ecj->eij", a, b)
+
+    blocks = torch.cat([
+        outer(wJi, Ji) + outer(bBi, Bi),
+        outer(wJi, Jj) + outer(bBi, Bj),
+        outer(wJj, Ji) + outer(bBj, Bi),
+        outer(wJj, Jj) + outer(bBj, Bj),
+    ])
+    slots = torch.cat([idx_i * k + idx_i, idx_i * k + idx_j, idx_j * k + idx_i, idx_j * k + idx_j])
+    H = torch.zeros((k * k, d, d), dtype=dt, device=r.device).index_add_(0, slots, blocks)
+    rhs_i = torch.einsum("eci,ec->ei", wJi, r) + torch.einsum("eci,ec->ei", bBi, rb)
+    rhs_j = torch.einsum("eci,ec->ei", wJj, r) + torch.einsum("eci,ec->ei", bBj, rb)
+    g = torch.zeros((k, d), dtype=dt, device=r.device).index_add_(
+        0, torch.cat([idx_i, idx_j]), -torch.cat([rhs_i, rhs_j])
+    )
+    H = H.reshape(k, k, d, d).permute(0, 2, 1, 3).reshape(k * d, k * d)
+    if basis is None:
+        return H, g.reshape(k * d)
+    C = torch.zeros((k, d, 2), dtype=dt, device=r.device).index_add_(
+        0, torch.cat([idx_i, idx_j]), torch.cat([outer(wJi, Jg), outer(wJj, Jg)])
+    )
+    Hgg = torch.einsum("ecg,ech->gh", Jg * w, Jg)
+    g_g = -torch.einsum("ecg,ec->g", Jg * w, r)
+    return H, g.reshape(k * d), C.reshape(k * d, 2), Hgg, g_g
+
+
+def _vi_cost(state: ViBAState, obs: BAObservations, cam, ext, chain: ImuChain, gravity, delta2):
+    """Robust cost (vision + preintegration + bias walk) and the per-
+    observation chi2 (M,R)."""
+    r, _, _ = _vi_blocks(state, obs, cam, ext)
+    chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+    hw = huber_weight(chi2, delta2)
+    vis_cost = torch.sum(torch.where(obs.valid, chi2 * hw.clamp(max=1.0), torch.zeros_like(chi2)))
+    k = state.nav.p.shape[0]
+    idx_i, idx_j = chain.edges(k)
+    ns_i, ns_j = _take(state.nav, idx_i), _take(state.nav, idx_j)
+    e = idx_i.shape[0]
+    z15 = torch.zeros((e, 15), dtype=r.dtype, device=r.device)
+    ri = (_edge_whiteners(chain) @ preint_residual(z15, z15[:, :9], ns_i, ns_j, chain.pre, gravity)[..., None])[..., 0]
+    ichi2 = torch.sum(ri * ri, dim=-1)
+    ihw = huber_weight(ichi2, CHI2_VI_9DOF)
+    rb = bias_walk_residual(z15, z15, ns_i, ns_j)
+    consec = ((idx_j - idx_i) == 1).to(ri.dtype)
+    binfo = chain.bias_cov_inv_diag[None, :] * (chain.valid.to(ri.dtype) * consec)[:, None]
+    imu_cost = torch.sum(torch.where(chain.valid, ichi2 * ihw.clamp(max=1.0), torch.zeros_like(ichi2))) + torch.sum(
+        binfo * rb * rb
+    )
+    return vis_cost + imu_cost, chi2
+
+
+def _apply_vi_update(state: ViBAState, dx, dl, k, fixed_lm=None) -> ViBAState:
+    nav = state.nav.inc_small(dx.reshape(k, 15))
+    pts = state.points + dl
+    if fixed_lm is not None:
+        pts = torch.where(fixed_lm[:, None], state.points, pts)
+    return ViBAState(nav, pts)
+
+
+def _select_vi(accept, a: ViBAState, b: ViBAState) -> ViBAState:
+    return ViBAState(select_nav(accept, a.nav, b.nav), torch.where(accept, a.points, b.points))
+
+
+def vi_ba(
+    state: ViBAState,
+    obs: BAObservations,
+    cam: PinholeCamera,
+    ext: Extrinsics,
+    chain: ImuChain,
+    gravity: torch.Tensor,
+    fixed_kf: torch.Tensor,
+    iters: int = 10,
+    fixed_lm: Optional[torch.Tensor] = None,
+) -> Tuple[ViBAState, torch.Tensor]:
+    """Visual-inertial windowed / global BA over K NavStates and M
+    landmarks. Returns (state, final per-observation chi2 (M,R))."""
+    k = state.nav.p.shape[0]
+    d = 15
+    delta2 = CHI2_MONO_2DOF
+    obs = obs._replace(kf_idx=obs.kf_idx.clamp(0, k - 1))
+    fixed_kd = torch.repeat_interleave(fixed_kf, d)
+    lam = torch.full((), 1e-4, dtype=state.points.dtype, device=state.points.device)
+    # the cost of the current state: after the first iteration, the accepted
+    # candidate's (the same state, so the same value)
+    cost0, _ = _vi_cost(state, obs, cam, ext, chain, gravity, delta2)
+    for _ in range(iters):
+        r, Jp, Jl = _vi_blocks(state, obs, cam, ext)
+        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+        w = obs.inv_sigma2 * huber_weight(chi2, delta2) * obs.valid.to(r.dtype)
+        S, b, Hll_inv, b_l, U = _schur_system(r, Jp, Jl, w, obs, k, d, lam)
+        Himu, gimu = _vi_imu_system(state.nav, chain, gravity, k)
+        dx = _solve_reduced(S + Himu, b + gimu, fixed_kd, lam)
+        dl = _back_substitute(Hll_inv, b_l, U, dx, obs, d)
+        cand = _apply_vi_update(state, dx, dl, k, fixed_lm)
+        cost1, _ = _vi_cost(cand, obs, cam, ext, chain, gravity, delta2)
+        accept = cost1 < cost0
+        cost0 = torch.where(accept, cost1, cost0)
+        state = _select_vi(accept, cand, state)
+        lam = torch.where(accept, (lam * 0.5).clamp(min=1e-6), (lam * 4.0).clamp(max=1e4))
+    _, chi2 = _vi_cost(state, obs, cam, ext, chain, gravity, delta2)
+    return state, chi2
+
+
+def vi_ba_two_phase(
+    state: ViBAState,
+    obs: BAObservations,
+    cam: PinholeCamera,
+    ext: Extrinsics,
+    chain: ImuChain,
+    gravity: torch.Tensor,
+    fixed_kf: torch.Tensor,
+    iters1: int = 5,
+    iters2: int = 5,
+    fixed_lm: Optional[torch.Tensor] = None,
+) -> Tuple[ViBAState, BAObservations]:
+    """`vi_ba`, chi2 gating at 1.5 x 5.991, `vi_ba` again, gating at 5.991."""
+    state, chi2 = vi_ba(state, obs, cam, ext, chain, gravity, fixed_kf, iters1, fixed_lm)
+    obs = obs._replace(valid=obs.valid & (chi2 <= CHI2_MONO_2DOF * 1.5))
+    state, chi2 = vi_ba(state, obs, cam, ext, chain, gravity, fixed_kf, iters2, fixed_lm)
+    obs = obs._replace(valid=obs.valid & (chi2 <= CHI2_MONO_2DOF))
+    return state, obs
+
+
+# ---------------------------------------------------------------------------
+# visual-inertial BA with a free gravity direction (the post-init global BA)
+# ---------------------------------------------------------------------------
+
+
+def _gravity_basis(g: torch.Tensor) -> torch.Tensor:
+    """(3,2) orthonormal basis perpendicular to g: rotating g about these
+    axes spans the 2-DoF direction manifold while |g| stays fixed."""
+    gn = g / torch.linalg.norm(g).clamp(min=1e-12)
+    # the coordinate axis least aligned with g seeds the basis
+    # (index_select: indexing with a 0-dim tensor would read it on the host)
+    seed = torch.eye(3, dtype=g.dtype, device=g.device).index_select(0, torch.argmin(gn.abs()).reshape(1))[0]
+    b1 = torch.linalg.cross(gn, seed)
+    b1 = b1 / torch.linalg.norm(b1).clamp(min=1e-12)
+    b2 = torch.linalg.cross(gn, b1)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def vi_ba_gw(
+    state: ViBAState,
+    obs: BAObservations,
+    cam: PinholeCamera,
+    ext: Extrinsics,
+    chain: ImuChain,
+    gravity: torch.Tensor,
+    fixed_kf: torch.Tensor,
+    iters: int = 15,
+    fixed_lm: Optional[torch.Tensor] = None,
+) -> Tuple[ViBAState, torch.Tensor, torch.Tensor]:
+    """Visual-inertial global BA with a free 2-DoF gravity-direction vertex:
+    the post-init GBA, which repairs the residual scale and gravity error of
+    the closed-form init together. Only P and R of the fixed keyframes are
+    held (their V and biases stay free). Returns (state, refined gravity
+    (3,), final per-observation chi2)."""
+    k = state.nav.p.shape[0]
+    d = 15
+    delta2 = CHI2_MONO_2DOF
+    dev = state.points.device
+    obs = obs._replace(kf_idx=obs.kf_idx.clamp(0, k - 1))
+    pose_dofs = torch.zeros(d, dtype=torch.bool, device=dev)
+    pose_dofs[0:3] = True
+    pose_dofs[6:9] = True
+    fixed_ext = torch.cat([
+        torch.repeat_interleave(fixed_kf, d) & pose_dofs.repeat(k),
+        torch.zeros(2, dtype=torch.bool, device=dev),
+    ])
+    lam = torch.full((), 1e-4, dtype=state.points.dtype, device=dev)
+    cost0, _ = _vi_cost(state, obs, cam, ext, chain, gravity, delta2)  # then the accepted candidate's
+    for _ in range(iters):
+        basis = _gravity_basis(gravity)
+        r, Jp, Jl = _vi_blocks(state, obs, cam, ext)
+        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+        w = obs.inv_sigma2 * huber_weight(chi2, delta2) * obs.valid.to(r.dtype)
+        S, b, Hll_inv, b_l, U = _schur_system(r, Jp, Jl, w, obs, k, d, lam)
+        Himu, gimu, C, Hgg, gg = _vi_imu_system(state.nav, chain, gravity, k, basis)
+        # the augmented system [[S, C], [C^T, Hgg]]
+        A = torch.cat([torch.cat([S + Himu, C], 1), torch.cat([C.T, Hgg], 1)], 0)
+        dx = _solve_reduced(A, torch.cat([b + gimu, gg]), fixed_ext, lam)
+        dx_pose, dg = dx[: k * d], dx[k * d:]
+        dl = _back_substitute(Hll_inv, b_l, U, dx_pose, obs, d)
+        cand = _apply_vi_update(state, dx_pose, dl, k, fixed_lm)
+        g_cand = exp_so3(basis @ dg) @ gravity
+        cost1, _ = _vi_cost(cand, obs, cam, ext, chain, g_cand, delta2)
+        accept = cost1 < cost0
+        cost0 = torch.where(accept, cost1, cost0)
+        state = _select_vi(accept, cand, state)
+        gravity = torch.where(accept, g_cand, gravity)
+        lam = torch.where(accept, (lam * 0.5).clamp(min=1e-6), (lam * 4.0).clamp(max=1e4))
+    _, chi2 = _vi_cost(state, obs, cam, ext, chain, gravity, delta2)
+    return state, gravity, chi2
+
+
+def vi_ba_gw_two_phase(
+    state: ViBAState,
+    obs: BAObservations,
+    cam: PinholeCamera,
+    ext: Extrinsics,
+    chain: ImuChain,
+    gravity: torch.Tensor,
+    fixed_kf: torch.Tensor,
+    iters1: int = 12,
+    iters2: int = 8,
+    fixed_lm: Optional[torch.Tensor] = None,
+) -> Tuple[ViBAState, torch.Tensor, BAObservations]:
+    """`vi_ba_gw` twice with the two-phase chi2 gating of `vi_ba_two_phase`."""
+    state, gravity, chi2 = vi_ba_gw(state, obs, cam, ext, chain, gravity, fixed_kf, iters1, fixed_lm)
+    obs = obs._replace(valid=obs.valid & (chi2 <= CHI2_MONO_2DOF * 1.5))
+    state, gravity, chi2 = vi_ba_gw(state, obs, cam, ext, chain, gravity, fixed_kf, iters2, fixed_lm)
+    obs = obs._replace(valid=obs.valid & (chi2 <= CHI2_MONO_2DOF))
+    return state, gravity, obs

@@ -1,19 +1,34 @@
-"""Reprojection residual of the vision Tcw 6-DoF pose (port of
-viorb_tpu/optim/reprojection.py::reproj_residual_tcw), with its analytic
-Jacobian.
+"""Reprojection residuals of the two pose parameterizations (port of
+viorb_tpu/optim/reprojection.py), with their analytic Jacobians.
 
-The reference differentiates the residual with `jax.jacfwd` at delta=0.
-The port writes that derivative out: with pc = R p + t and
-T <- Exp(delta) T, d pc / d rho = I and d pc / d phi = -[pc]x, chained
-through d project / d pc. tests/test_torch_pose.py holds it to jacfwd.
+  * vision Tcw 6-DoF: with pc = R p + t and T <- Exp(delta) T,
+    d pc / d rho = I and d pc / d phi = -[pc]x;
+  * VI NavState (body pose p, R; body-camera extrinsics Tbc): with
+    pb = R^T (p_w - p), pc = Rbc^T (pb - p_bc), p <- p + dp and
+    R <- R Exp(dphi), d pc / d dp = -Rbc^T R^T, d pc / d dphi = Rbc^T [pb]x,
+    d pc / d p_w = Rbc^T R^T; the velocity columns are zero, as in the
+    reference's PVR edge.
+
+Each is chained through d project / d pc. The reference differentiates the
+residuals with `jax.jacfwd` at delta = 0; tests/test_torch_pose.py and
+tests/test_torch_vi_optim.py hold the analytic forms to it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from viorb_tpu_torch.geometry.camera import PinholeCamera, project, project_jacobian
 from viorb_tpu_torch.geometry.so3 import exp_so3, hat
+
+
+class Extrinsics(NamedTuple):
+    """Tbc: the camera pose in the body (IMU) frame, x_b = r_bc @ x_c + p_bc."""
+
+    r_bc: torch.Tensor  # (3,3)
+    p_bc: torch.Tensor  # (3,)
 
 
 def reproj_residual_tcw(
@@ -71,3 +86,47 @@ def reproj_residual_jacobians_ba(
     pc = (r_cw @ p_w[..., None])[..., 0] + t_cw
     J_proj, J_pose = _pose_jacobian(cam, pc)
     return project(cam, pc) - uv, J_pose, J_proj @ r_cw
+
+
+def reproj_residual_navstate(
+    delta_pose: torch.Tensor,  # (...,9) (dP, dV, dPhi) increment on the NavState's P, V, R
+    delta_lm: torch.Tensor,  # (...,3) landmark increment
+    p_wb: torch.Tensor,
+    r_wb: torch.Tensor,
+    p_w: torch.Tensor,  # (...,3)
+    uv: torch.Tensor,  # (...,2)
+    cam: PinholeCamera,
+    ext: Extrinsics,
+) -> torch.Tensor:
+    """Body-frame projection residual (...,2); the velocity part of the
+    increment is unused. With a leading dim on the increments, everything
+    broadcasts against it (imu_factors.py says why forward-mode AD wants
+    one)."""
+    p = p_wb + delta_pose[..., 0:3]
+    R = r_wb @ exp_so3(delta_pose[..., 6:9])
+    pb = (p_w + delta_lm - p) @ R
+    pc = (pb - ext.p_bc) @ ext.r_bc
+    return project(cam, pc) - uv
+
+
+def reproj_residual_jacobians_navstate(
+    p_wb: torch.Tensor,  # (...,3) body position of each observation's state
+    r_wb: torch.Tensor,  # (...,3,3)
+    p_w: torch.Tensor,  # (...,3) landmark of each observation
+    uv: torch.Tensor,  # (...,2)
+    cam: PinholeCamera,
+    ext: Extrinsics,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`reproj_residual_navstate` at zero increment (...,2), its Jacobian
+    w.r.t. the state's (dP, dV, dPhi) (...,2,9) and w.r.t. the landmark
+    (...,2,3)."""
+    r_wb_t = r_wb.transpose(-1, -2)
+    pb = (r_wb_t @ (p_w - p_wb)[..., None])[..., 0]
+    r_cb = ext.r_bc.T
+    pc = (r_cb @ (pb - ext.p_bc)[..., None])[..., 0]
+    J_proj = project_jacobian(cam, pc)  # (...,2,3)
+    J_cb = J_proj @ r_cb  # d res / d pb
+    J_lm = J_cb @ r_wb_t
+    J_phi = J_cb @ hat(pb)
+    J_pose = torch.cat([-J_lm, torch.zeros_like(J_lm), J_phi], dim=-1)
+    return project(cam, pc) - uv, J_pose, J_lm

@@ -145,9 +145,10 @@ class MonoSlam:
     `device=None` is the card (`viorb_tpu_torch.default_device()`, which
     raises without one); `device="cpu"` runs every device function's plain
     version eagerly, with the same threads. Call `shutdown()` after a
-    threaded run. On the card every frame of a threaded run must have the
-    first frame's shape and dtype: its cores are captured before the
-    threads start."""
+    threaded run. A threaded run captures its cores before its threads
+    start, at the first frame's shape and dtype; a frame of another shape or
+    dtype stops the threads, captures again and restarts them
+    (`recaptures` counts it)."""
 
     def __init__(
         self,
@@ -203,6 +204,8 @@ class MonoSlam:
         # keyframes or modify the map (reference
         # System::ActivateLocalizationMode -> Tracking::mbOnlyTracking)
         self.localization_only = False
+        # no keyframe insertion (a VI relocalization's bias re-solve sets it)
+        self.suppress_keyframes = False
         # host-clock ms of each mapping job's phases, in order of the jobs
         # (on the worker's clock when async)
         self.job_times: List[Dict[str, float]] = []
@@ -248,6 +251,10 @@ class MonoSlam:
         self.collector_waits = 0  # the collector's host waits: one per batch of frames
         # host ms each dispatched frame spent blocked in the backlog and depth gates
         self.gate_ms: List[float] = []
+        # frames of a new shape or dtype taken by a threaded run: each stops
+        # the threads, captures the cores at the new key and restarts them
+        self.recaptures = 0
+        self._threads_key: Optional[tuple] = None
         self._last_info = {"state": self.state, "n_tracked": 0, "n_kfs": 0, "n_points": 0}
 
     # -- host <-> device ---------------------------------------------------
@@ -334,8 +341,11 @@ class MonoSlam:
         queue it (async). Returns the state, the tracked-point count and the
         map's keyframe and point counts; when streaming, the counts as the
         collector last left them, and `queued`, the frames in flight."""
-        if self.async_mapping and self._worker is None:
-            self._start_threads(image)
+        if self.async_mapping:
+            if self._worker is None:
+                self._start_threads(image)
+            elif self._frame_key(image) != self._threads_key:
+                self._recapture(image)
         if self.streaming:
             return self._process_frame_streaming(image, ts)
         return self._process_frame_once(image, ts)
@@ -395,11 +405,31 @@ class MonoSlam:
 
     # -- threads -------------------------------------------------------------
 
+    @staticmethod
+    def _frame_key(image) -> tuple:
+        """The shape and dtype of a frame: a graph captured for one serves
+        frames of the same key."""
+        image = torch.as_tensor(image)
+        return tuple(image.shape), image.dtype
+
+    def _recapture(self, image):
+        """A frame of a new shape or dtype in a threaded run (the reference
+        recompiles for it): bring the threads to a quiescent point (the
+        collector collects the frames in flight, the worker finishes its
+        queue and writes its BA back, both stop and are unregistered), then
+        start them again, which captures the cores this mode replays at the
+        new key first. No capture runs beside a working thread."""
+        self.shutdown()
+        self._stream_stop = False
+        self.recaptures += 1
+        self._start_threads(image)
+
     def _start_threads(self, image):
         """Start the mapping worker (and the collector when streaming). On
         the card, first capture the cores this mode replays at the shapes of
         `image` and of the padded local map: no capture may run beside the
         threads (cuda_graph.py)."""
+        self._threads_key = self._frame_key(image)
         if self._on_card:
             img = self._image(image)
             eye = self._up(np.eye(3, dtype=np.float32))
@@ -668,7 +698,7 @@ class MonoSlam:
             self.state = "OK"
             self._count_tracked(fr, pts, pf, inl, visible)
             self.frames_since_kf += 1
-            if self._need_new_keyframe():
+            if self._need_new_keyframe(ts):
                 self._insert_keyframe(fr)
                 self.frames_since_kf = 0
                 # anchor the carry to the NEW keyframe at its insertion pose:
@@ -1004,12 +1034,15 @@ class MonoSlam:
         # src/Tracking.cc:1711-1814): interval cap, ratio trigger gated by a
         # min-frames floor
         self.frames_since_kf += 1
-        if self._need_new_keyframe():
+        if self._need_new_keyframe(fr.timestamp):
             self._insert_keyframe(fr)
             self.frames_since_kf = 0
 
-    def _need_new_keyframe(self) -> bool:
-        if self.localization_only or self.n_tracked <= 15:
+    def _need_new_keyframe(self, ts: float) -> bool:
+        """The vision rules (`ts`, the frame's time, is for subclasses: the
+        VI time-gap rule); none while keyframes are suppressed (a VI
+        relocalization's bias re-solve) or in localization-only mode."""
+        if self.suppress_keyframes or self.localization_only or self.n_tracked <= 15:
             return False
         with self.map_lock:
             ref_tracked = int((self.map.keyframes[self.last_kf_id].point_idx >= 0).sum())
@@ -1149,6 +1182,9 @@ class MonoSlam:
                     self.map.add_observation(p, kf_id, int(f))
         self._seed_kf_payload(kf_id, fr)
         self.last_kf_id = kf_id
+        # subclass hook (VI: the IMU segment, chain links and NavState) runs
+        # BEFORE the job can start: the worker reads what it attaches
+        self._on_keyframe_created(fr, kf_id)
         if self.async_mapping:
             if self._worker_error is not None:
                 raise RuntimeError("mapping worker died") from self._worker_error
@@ -1158,6 +1194,9 @@ class MonoSlam:
         with self.map_lock:
             kf_ = self.map.keyframes[kf_id]
             fr.r_cw, fr.t_cw = kf_.r_cw.copy(), kf_.t_cw.copy()
+
+    def _on_keyframe_created(self, fr: FrameRecord, kf_id: int):
+        """Hook between keyframe creation and the mapping job's dispatch."""
 
     def _mapping_job(self, kf_id: int):
         """The LocalMapping step for one keyframe: the previous job's
@@ -1206,7 +1245,7 @@ class MonoSlam:
             self.map.update_point_stats(touched[self.map.pt_active[touched]])
         window = [kf_id] + sorted(cov, key=cov.get, reverse=True)[: self.local_window - 1]
         lap("stats")
-        self._mapping_ba(window)
+        self._mapping_ba(kf_id, window)
         lap("ba")
         with self.map_lock:
             self._cull_points()
@@ -1261,10 +1300,11 @@ class MonoSlam:
             touched = np.unique(np.concatenate([own, nb_pts]) if len(nb_pts) else own)
             self.map.update_point_stats(touched[self.map.pt_active[touched]])
 
-    def _mapping_ba(self, window: List[int]):
-        """Windowed local BA with outside-window anchors fixed. Async: skipped
-        while a newer keyframe waits (the reference's BA abort), at most
-        twice in a row, and its write-back deferred."""
+    def _mapping_ba(self, kf_id: int, window: List[int]):
+        """Windowed local BA over `window` (`kf_id`'s) with outside-window
+        anchors fixed. Async: skipped while a newer keyframe waits (the
+        reference's BA abort), at most twice in a row, and its write-back
+        deferred. Subclasses switch the flavour (VI)."""
         with self.map_lock:
             # fixed anchors: KFs observing window points but outside the window
             anchor = set()
@@ -1513,6 +1553,13 @@ class MonoSlam:
         """The post-loop global BA: belongs to loop closing, not ported yet."""
         raise NotImplementedError(_NOT_PORTED)
 
+    def _can_cull(self, k: int) -> bool:
+        """Subclass veto hook (VI: the preintegration time-gap guard)."""
+        return True
+
+    def _on_cull(self, k: int):
+        """Subclass hook run just before keyframe `k` is removed."""
+
     def _cull_keyframes(self, window: List[int]):
         """Redundant-keyframe culling (reference LocalMapping::
         KeyFrameCulling, src/LocalMapping.cc:1665-1824): a window KF is
@@ -1522,7 +1569,7 @@ class MonoSlam:
         protected = set(sorted(self.map.keyframes.keys())[:2])
         protected.add(self.last_kf_id)
         for k in window:
-            if k in protected or k not in self.map.keyframes:
+            if k in protected or k not in self.map.keyframes or not self._can_cull(k):
                 continue
             kf = self.map.keyframes[k]
             pts = kf.point_idx[kf.point_idx >= 0]
@@ -1530,6 +1577,7 @@ class MonoSlam:
                 continue
             n_obs = (self.map.obs_kf[pts] >= 0).sum(axis=1)
             if (n_obs >= 4).mean() > 0.9:  # self + 3 others
+                self._on_cull(k)
                 # spanning tree: adopt the culled KF's children to its
                 # parent (reference KeyFrame::SetBadFlag re-parenting)
                 new_parent = kf.parent_kf
@@ -1644,6 +1692,11 @@ class MonoSlam:
             t_rel = fr.t_cw - r_rel @ kf.t_cw
             self.traj_entries.append((ts, self.last_kf_id, r_rel, t_rel))
             fr.ref = (self.last_kf_id, r_rel, t_rel, self.map.version)
+
+    def _rescale_trajectory(self, s: float):
+        """Scale the recorded frame poses with the map (VI init's rescale;
+        the caller holds the map lock)."""
+        self.traj_entries = [(ts, k, r, t * s) for ts, k, r, t in self.traj_entries]
 
     def trajectory_tum(self) -> np.ndarray:
         """(T,8): t, tx ty tz, qx qy qz qw (camera-to-world), composing the

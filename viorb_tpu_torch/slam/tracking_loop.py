@@ -1,6 +1,7 @@
 """Device-resident tracking cores (port of viorb_tpu/slam/tracking_loop.py:
 DeviceMap, TrackCarry, TrackOut, make_tracking_step,
-make_pipeline_track_core, make_streaming_track_core, identity_carry).
+make_pipeline_track_core, make_streaming_track_core, tcw_from_nav,
+make_vi_pipeline_core, identity_carry).
 
 The whole per-frame tracking path — extract -> predict -> project-match
 (with the wide-radius retry) -> pose LM — with no host sync anywhere, so a
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from viorb_tpu_torch.cuda_graph import GraphedFunction
@@ -29,7 +31,11 @@ from viorb_tpu_torch.device import resolve_device
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
 from viorb_tpu_torch.geometry.so3 import normalize_rotation
-from viorb_tpu_torch.optim.pose_only import PoseObs, pose_optimization_tcw
+from viorb_tpu_torch.imu.navstate import NavState, propagate_navstate
+from viorb_tpu_torch.imu.preintegration import preintegrate
+from viorb_tpu_torch.imu.types import ImuNoise
+from viorb_tpu_torch.optim.pose_only import PoseObs, ViPosePrior, pose_optimization_tcw, pose_optimization_vi
+from viorb_tpu_torch.optim.reprojection import Extrinsics
 from viorb_tpu_torch.slam.kernels import TRACK_RADIUS, match_by_projection, match_by_projection_retry
 
 
@@ -220,6 +226,88 @@ def _build_streaming_track_core(cam: PinholeCamera, extractor: OrbExtractor):
         return new_carry, (feats, xy, fdesc, pf, r_new, t_new, inlier, visible, ok)
 
     return GraphedFunction(core)
+
+
+def tcw_from_nav(nav: NavState, ext: Extrinsics):
+    """Camera pose (r_cw, t_cw) of a body NavState, on its device."""
+    r_wc = nav.r @ ext.r_bc
+    c_w = nav.p + nav.r @ ext.p_bc
+    r_cw = r_wc.transpose(-1, -2)
+    return r_cw, -(r_cw @ c_w)
+
+
+class ViPipelineCore:
+    """The VI tracking core: two CUDA graphs on the card, one for each value
+    of the reference's static `use_prior` (frame-to-frame with the
+    marginalized prior and the anchor optimized, or frame-to-keyframe with
+    the anchor fixed). `core(*args, use_prior=...)` calls the one the host
+    picks; `graphs[use_prior]` is each `GraphedFunction`."""
+
+    def __init__(self, fn):
+        self.graphs = {flag: GraphedFunction(lambda *a, _f=flag: fn(*a, use_prior=_f)) for flag in (False, True)}
+
+    def __call__(self, *args, use_prior: bool = False):
+        return self.graphs[use_prior](*args)
+
+
+def make_vi_pipeline_core(cam: PinholeCamera, extractor: OrbExtractor, ext: Extrinsics, noise: ImuNoise):
+    """The VI tracking core of the full VI pipeline: IMU preintegration since
+    the last frame (and, frame-to-keyframe, since the last keyframe),
+    NavState propagation, extraction, projection matching with the
+    wide-radius retry and the 15-DoF VI pose LM (2 rounds x 5 iterations)
+    with the marginal information of the frame, one CUDA graph a frame on
+    the card. `ext` lives on the core's device.
+
+    core(image, nav_cur, ns_i, batch_fr, batch_kf, t_last, t_now, t_kf,
+         bias_g, bias_a, gravity, prior_state, prior_info,
+         xyz, desc_pm1, valid, normal, dmin, dmax, use_prior=False)
+    -> (feats, xy, fdesc, pf, visible, nmatch, nav_pred, ns_j, inlier, marg),
+    marg the frame's 15x15 marginal information, symmetrized
+
+    ns_i is the anchor (the last frame with use_prior, else the last
+    keyframe); prior_state / prior_info are ignored without use_prior."""
+    key = ("vi", cam, extractor.config_key(), ext.r_bc.device,
+           tuple(ext.r_bc.cpu().reshape(-1).tolist()), tuple(ext.p_bc.cpu().tolist()), tuple(noise))
+    return _cached(key, lambda: _build_vi_pipeline_core(cam, extractor, ext, noise))
+
+
+def _build_vi_pipeline_core(cam: PinholeCamera, extractor: OrbExtractor, ext: Extrinsics, noise: ImuNoise):
+    front = _FrontEnd(cam, extractor)
+    bias_rw_np = np.concatenate([
+        np.full(3, 1.0 / max(noise.gyro_bias_rw_var, 1e-12)),
+        np.full(3, 1.0 / max(noise.acc_bias_rw_var, 1e-12)),
+    ]).astype(np.float32)
+    bias_rw: dict = {}  # per device, uploaded at first use (a graph's warm-up)
+
+    def core(image, nav_cur, ns_i, batch_fr, batch_kf, t_last, t_now, t_kf, bias_g, bias_a, gravity,
+             prior_state, prior_info, xyz, desc_pm1, valid, normal, dmin, dmax, use_prior: bool):
+        dev = image.device
+        if dev not in bias_rw:
+            bias_rw[dev] = torch.from_numpy(bias_rw_np).to(dev)
+        pre_fr = preintegrate(batch_fr, bias_g, bias_a, t_last, t_now, noise)
+        nav_pred = propagate_navstate(nav_cur, pre_fr, gravity)
+        r_pred, t_pred = tcw_from_nav(nav_pred, ext)
+        feats, xy, fdesc, pf, nmatch, visible, obs = front(
+            image, r_pred, t_pred, xyz, desc_pm1, valid, normal, dmin, dmax, retry=True
+        )
+        if use_prior:
+            bias_info = bias_rw[dev] / pre_fr.dt.clamp(min=1e-3)
+            prior = ViPosePrior(prior_state, prior_info, torch.ones((), dtype=torch.bool, device=dev))
+            ns_j, _ns_i, inlier, marg = pose_optimization_vi(
+                nav_pred, ns_i, obs, cam, ext, pre_fr, gravity, bias_info,
+                prior=prior, rounds=2, iters_per_round=5, optimize_i=True,
+            )
+        else:
+            pre_kf = preintegrate(batch_kf, bias_g, bias_a, t_kf, t_now, noise)
+            bias_info = bias_rw[dev] / pre_kf.dt.clamp(min=1e-3)
+            ns_j, _ns_i, inlier, marg = pose_optimization_vi(
+                nav_pred, ns_i, obs, cam, ext, pre_kf, gravity, bias_info,
+                rounds=2, iters_per_round=5, optimize_i=False,
+            )
+        # symmetrized: the next frame's prior information
+        return feats, xy, fdesc, pf, visible, nmatch, nav_pred, ns_j, inlier, 0.5 * (marg + marg.T)
+
+    return ViPipelineCore(core)
 
 
 def identity_carry(device=None) -> TrackCarry:
