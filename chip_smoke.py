@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
-functions, lock-step, async and streaming SLAM and lock-step
-monocular-inertial SLAM on one NVIDIA GPU.
+functions, lock-step, async and streaming SLAM, lock-step
+monocular-inertial SLAM, and place recognition and loop closing on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
   1. report the card (name, power limit), CUDA and nvcc versions;
-  2. build the hand-written kernels from viorb_tpu_torch/csrc/ with nvcc
-     (one library, two kernel entries);
+  2. build the hand-written kernels from viorb_tpu_torch/csrc/ with nvcc,
+     one process a source, all started together (K1's library, two kernel
+     entries; K8's);
   3. hold each kernel entry to its plain PyTorch version on the card, at
      the shapes the tracking step gives it, with torch.equal: the
      single-image FAST score map on 24 level images, and the fused
@@ -77,9 +79,34 @@ Phases, in order; any failure raises and exits non-zero:
      replay and one host sync a steady VI frame, 0 syncs in a replay and
      replay == eager in each of the VI core's two graphs; times of the VI
      core graphed and eager, K7 (the preintegration) alone, VI init, vi_ba
-     and vi_ba_gw per LM iteration, the VI mapping job; then six runs with
-     the port's own draws, reported beside the reference's seeds 0-5;
-  9. time the fused launch, the 8 single-level launches, their plain
+     and vi_ba_gw per LM iteration, the VI mapping job; then twelve runs with
+     the port's own draws (seeds 0-11), reported beside the reference's
+     seeds 0-5;
+  9. place recognition and loop closing: K8 (the BoW descent) against its
+     plain twin (words torch.equal, weights within 1e-6 relative) on the
+     stock and a trained tree at 1000 descriptors, all-invalid rows too,
+     and its device time beside its bound; lock-step MonoSlam with and
+     without loop closing on tests/test_e2e_loop.py's 100-frame noisy
+     circuit, both with the reference's two-view draw
+     (tests/torch_loop_golden.npz), and that test's contract (a loop
+     closes, Sim3 ATE <= the no-loop run's, the globally aligned tail <=
+     0.8x), then the loop run again with the loop closer's stage times,
+     its trajectory equal to the first's bit for bit (the BAs and the
+     essential graph add in a fixed order); lock-step MonoViSlam likewise at
+     tests/test_e2e_vi_loop.py's configuration and contract;
+     BoW relocalization after a blackout (tests/test_relocalization.py)
+     and with the stock vocabulary after load_map (tests/test_map_io.py);
+     the 300-frame laps of tests/test_stress.py; async MonoSlam with loop
+     closing fed at the camera's rate (the loop closes, the GBA thread
+     joins cleanly, epochs begun / aborted and stale write-backs printed,
+     the tracker's longest frame while the loop job ran below half that
+     job: the map lock is not held across the closure), and streaming
+     MonoSlam with loop closing at the camera's rate (its threads join
+     cleanly, >= 80 % of the frames kept, final OK, Sim3 ATE within
+     tests/test_streaming.py's envelope of the lock-step loop run's,
+     max(5x, 0.20 m); loops and the longest dispatch printed);
+     K1 and K8 launches by path;
+ 10. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -99,6 +126,7 @@ import collections
 import contextlib
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -139,9 +167,23 @@ ASYNC_RUNS = 5  # un-paced async at tests/test_async_mapping.py's configuration
 VI_FRAMES, VI_DT, VI_POST_INIT_T = 60, 0.1, 4.5
 VI_CONFIG = dict(n_features=800, vi_init_min_time=2.5, vi_init_min_kfs=8, kf_max_interval=5, imu_capacity=256)
 VI_GOLDENS = tuple(f"vi_full_seed{seed}" for seed in range(6))  # the reference's runs with seeds 0-5
-VI_OWN_SEEDS = range(6)  # runs with the port's own two-view draws
+VI_OWN_SEEDS = range(12)  # runs with the port's own (nested) two-view draws
 # tests/test_torch_mono_vi.py's tolerances against the reference's golden
 VI_TRAJ_SHARE, VI_GRAVITY_DEG, VI_SCALE_TOL, VI_ATE_FACTOR = 0.03, 0.5, 0.02, 1.5
+# place recognition and loop closing: tests/test_e2e_loop.py's and
+# tests/test_e2e_vi_loop.py's noisy circuit, tests/test_relocalization.py's
+# blackout, tests/test_map_io.py's stock-vocabulary relocalization and the
+# laps case of tests/test_stress.py
+LOOP_FRAMES, LOOP_DT, LOOP_NOISE = 100, 0.1, 4.0
+LOOP_CONFIG = dict(n_features=800, kf_max_interval=5)
+LOOP_VI_CONFIG = dict(LOOP_CONFIG, vi_init_min_time=2.5, vi_init_min_kfs=8)
+LOOP_VOCAB_EVERY, LOOP_VOCAB_FEATURES = 12, 600
+RELOC_FRAMES, RELOC_BLACKOUT, MAPIO_FRAMES = 40, range(20, 24), 45
+LAPS_FRAMES, LAPS_REUSE_FROM = 300, 170
+K8_N = 1000  # descriptors a K8 check: a keyframe's worth
+# Hopper's popcount rate: 16 a clock an SM (CUDA C++ Programming Guide's
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
+POPC_PER_S = 16 * 132 * 1.98e9
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the yardsticks of
 # each kernel's bound.
@@ -859,7 +901,7 @@ def _vi_phase(cam, dev, tag: str) -> int:
     capacity 256) and its share of the core, the steady VI frame, VI init,
     `vi_ba` and `vi_ba_gw` per LM iteration at the window the run used, and
     the VI mapping job. Last, VI_OWN_SEEDS runs with the port's own draws
-    (its torch.Generator seeded 0-5): the contract's draw-independent part
+    (its torch.Generator seeded 0-11): the contract's draw-independent part
     is asserted (VI ready, final OK or IMU_ONLY, > 60 % of frames OK,
     gravity cos > 0.996), the metric ATE and scale are reported beside the
     reference's seeds. Returns the measured run's K1 launches."""
@@ -1153,6 +1195,455 @@ def _vi_phase(cam, dev, tag: str) -> int:
     return launches
 
 
+def _k8_check(dev, vocabs: dict, descs: dict, tag: str) -> dict:
+    """K8 against its plain twin on the card, on the same inputs: for each
+    vocabulary and descriptor set, the words torch.equal and the weights
+    within 1e-6 relative. Returns the numbers of the kernels line: the
+    worst weight error, the kernel's and the twin's device ms and the bound
+    on the stock tree at K8_N descriptors (a keyframe's worth), bytes at
+    the HBM rate or the popcounts this data needs at POPC_PER_S."""
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.bow.descend_cuda import bow_descend_cuda
+    from viorb_tpu_torch.bow.vocabulary import _descend_torch
+
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for vname, vocab in vocabs.items():
+        dv = vocab.device_arrays(dev)
+        twin = dv._replace(centers_pm1=torch.from_numpy(vocab.centers_pm1).to(dev))
+        for dname, (desc, valid) in descs.items():
+            words, weights = bow_descend_cuda(dv, desc, valid)
+            p_words, p_weights = _descend_torch(twin, desc.float() * 2 - 1, valid)
+            torch.cuda.synchronize()
+            _check(torch.equal(words, p_words), f"K8 words != plain on the {vname} tree, {dname}")
+            err = (weights - p_weights).abs()
+            rel = float((err / p_weights.clamp(min=1e-30)).max()) if bool((p_weights > 0).any()) else 0.0
+            _check(bool((err[p_weights == 0] == 0).all()) and rel <= 1e-6,
+                   f"K8 weights differ from plain on the {vname} tree, {dname}: {rel:.2e} relative")
+            out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+            out["max_rel_err"] = max(out["max_rel_err"], rel)
+            n_valid = int(valid.sum())
+            print(f"K8 == plain on the {vname} tree ({len(vocab.children)} nodes, k={vocab.k}, {vocab.n_words} "
+                  f"words), {dname} ({desc.shape[0]} descriptors, {n_valid} valid): words torch.equal, weights "
+                  f"within {rel:.2e} relative")
+    vocab = vocabs["stock"]
+    desc, valid = descs["a keyframe's features"]
+    dv = vocab.device_arrays(dev)
+    twin = dv._replace(centers_pm1=torch.from_numpy(vocab.centers_pm1).to(dev))
+    out["ms"] = _event_ms(lambda: bow_descend_cuda(dv, desc, valid), reps=200, device_only=True)
+    out["plain_ms"] = _event_ms(lambda: _descend_torch(twin, desc.float() * 2 - 1, valid), reps=20,
+                                device_only=True)
+    # what this data needs: 8 popcounts for each valid child of every
+    # non-leaf node a valid descriptor passes through; the bytes of the
+    # nodes the walks visit (a visited non-leaf node's children row and its
+    # children's packed centers, every visited node's is_leaf, the reached
+    # leaves' word ids and idf), each read once, the descriptors and the
+    # valid flags read once, the words and the weights written once
+    d = desc.cpu().numpy().astype(np.float32) * 2 - 1
+    rows = valid.cpu().numpy()
+    node = np.zeros(len(d), np.int64)
+    popc = 0
+    visited = {0}
+    for _ in range(8):
+        leaf = vocab.is_leaf[node]
+        ch = vocab.children[node]
+        popc += int(8 * ((ch >= 0) & ~leaf[:, None] & rows[:, None]).sum())
+        sim = np.einsum("nkd,nd->nk", vocab.centers_pm1[np.maximum(ch, 0)], d)
+        sim[ch < 0] = -1e9
+        node = np.where(leaf, node, ch[np.arange(len(d)), np.argmax(sim, 1)])
+        visited.update(node[rows].tolist())
+    visited = np.array(sorted(visited), np.int64)
+    inner = visited[~vocab.is_leaf[visited]]
+    reached = visited[vocab.is_leaf[visited]]
+    k = vocab.children.shape[1]
+    n_bytes = (desc.numel() + len(d) + len(inner) * 4 * k + 32 * int((vocab.children[inner] >= 0).sum())
+               + len(visited) + 8 * len(reached) + 4 * len(d) + 4 * vocab.n_words)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, popc / POPC_PER_S
+    out["bound_ms"], out["bound_by"] = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    print(f"{tag} K8 bow_descend, {len(d)} descriptors on the stock tree: device time kernel {out['ms'] * 1e3:.2f} us "
+          f"(two launches: walk + normalization), plain twin {out['plain_ms'] * 1e3:.2f} us, bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}: {n_bytes} B, {popc} popcounts)")
+    return out
+
+
+@contextlib.contextmanager
+def _two_view_replay(draws):
+    """MonoSlam's two-view RANSAC draws the reference's minimal sets, call by
+    call (`draws`: (x1, valid, idx_h, idx_f) each), then its own."""
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.slam import mono as mono_module
+    from viorb_tpu_torch.solvers.two_view import two_view_from_samples
+
+    own = mono_module.two_view_init
+    calls = iter(draws)
+    log = []
+
+    def two_view_init(x1, x2, valid, cam_, generator, n_hypotheses=256):
+        ref = next(calls, None)
+        if ref is None:
+            log.append("own draw")
+            return own(x1, x2, valid, cam_, generator, n_hypotheses)
+        ref_x1, ref_valid, idx_h, idx_f = ref
+        log.append(bool(np.array_equal(valid.cpu().numpy(), ref_valid)))
+        return two_view_from_samples(x1, x2, valid, cam_, torch.from_numpy(idx_h).to(x1.device),
+                                     torch.from_numpy(idx_f).to(x1.device))
+
+    mono_module.two_view_init = two_view_init
+    try:
+        yield log
+    finally:
+        mono_module.two_view_init = own
+
+
+def _loop_phase(cam, dev, tag: str) -> tuple:
+    """Place recognition and loop closing on the card (module docstring,
+    phase 9). The reference's two loop contracts compare two whole runs
+    (with and without loop closing) of a package that is deterministic; so
+    is the port (its BAs and essential graph sum by GEMMs, not float
+    atomics), which the repeated MonoSlam loop run shows bit for bit.
+    Returns ({path: K1 launches}, {path: K8 launches}, the K8 numbers of
+    the kernels line)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch import launch_counts
+    from viorb_tpu_torch.bow import default_vocabulary, train_vocabulary
+    from viorb_tpu_torch.bow import descend_cuda
+    from viorb_tpu_torch.eval.ate import associate, ate_rmse, umeyama_alignment
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.features.extractor import OrbExtractor
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam import loop_closing as lc_module
+    from viorb_tpu_torch.slam.mono import MonoSlam
+    from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+    from viorb_tpu_torch.slam.tracking_loop import (
+        make_pipeline_track_core,
+        make_streaming_track_core,
+        make_vi_pipeline_core,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(root, "tests", "torch_loop_golden.npz")) as z:
+        gold = {k: z[k] for k in z.files}
+    draws = {run: [tuple(gold[f"{run}_two_view{i}_{k}"] for k in ("x1", "valid", "idx_h", "idx_f"))
+                   for i in range(int(gold[f"{run}_two_view_calls"]))] for run in ("mono", "vi")}
+    for run in ("mono", "vi"):
+        config = dict(gold[f"{run}_config"].tolist())
+        _check(int(config["n_frames"]) == LOOP_FRAMES and int(config["n_features"]) == LOOP_CONFIG["n_features"]
+               and int(config["kf_max_interval"]) == LOOP_CONFIG["kf_max_interval"]
+               and float(config["noise_std"]) == LOOP_NOISE and config["kind"] == "circuit",
+               f"the loop golden's {run} configuration is not this phase's: {config}")
+    seq = synthetic.make_sequence(LOOP_FRAMES, cam=cam, dt=LOOP_DT, kind="circuit", noise_std=LOOP_NOISE, device=dev)
+    imu = synthetic.make_imu(LOOP_FRAMES, LOOP_DT, hz=200.0, kind="circuit", noise_g=0.002, noise_a=0.03,
+                             bias_g=np.array([0.002, -0.001, 0.0015], np.float32),
+                             bias_a=np.array([0.03, -0.02, 0.01], np.float32))
+    samples, prev = [], -np.inf
+    for ts in seq.timestamps:
+        sel = (imu.t > prev) & (imu.t <= ts)
+        samples.append([(float(t), g, a) for t, g, a in zip(imu.t[sel], imu.gyro[sel], imu.acc[sel])])
+        prev = ts
+
+    # the vocabulary, as the reference's tests train it: the port's extractor
+    # (600 features) on every 12th frame, k=8, depth 3
+    t0 = time.perf_counter()
+    ex = OrbExtractor(n_features=LOOP_VOCAB_FEATURES)
+    descs = []
+    for i in range(0, LOOP_FRAMES, LOOP_VOCAB_EVERY):
+        f = ex.extract(seq.images[i], device=dev)
+        descs.append(f.desc01[f.valid].cpu().numpy())
+    vocab = train_vocabulary(np.concatenate(descs), k=8, depth=3)
+    stock = default_vocabulary()
+    print(f"{tag} loop: vocabulary trained on {sum(len(d) for d in descs)} descriptors of "
+          f"{len(descs)} circuit frames: {len(vocab.children)} nodes, {vocab.n_words} words "
+          f"({(time.perf_counter() - t0) * 1e3:.0f} ms, host numpy)")
+
+    # ---- K8 against its plain twin, at a keyframe's shapes ---------------------
+    f1000 = OrbExtractor(n_features=K8_N).extract(seq.images[LOOP_FRAMES // 2], device=dev)
+    rand = torch.randint(0, 2, (K8_N, 256), dtype=torch.uint8, generator=torch.Generator().manual_seed(0)).to(dev)
+    some_invalid = torch.arange(K8_N, device=dev) % 7 != 3
+    k8_sets = {
+        "a keyframe's features": (f1000.desc01.contiguous(), f1000.valid),
+        "random rows, every 7th invalid": (rand, some_invalid),
+        "every row invalid": (rand, torch.zeros(K8_N, dtype=torch.bool, device=dev)),
+    }
+    k8 = _k8_check(dev, {"stock": stock, "trained k=8 depth 3": vocab}, k8_sets, tag)
+
+    k1_paths, k8_paths = {}, {}
+
+    def counted(name, fn, cores):
+        """fn() with the K1 and K8 counters set to 0 just before and read
+        just after; K1 = the cores' graph launches + eager launches."""
+        for c in cores:
+            c.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        descend_cuda.LAUNCHES_K8 = 0
+        out = fn()
+        k1_paths[name] = sum(c.launches()["CELL_LAUNCHES"] for c in cores) + fast_cuda.CELL_LAUNCHES
+        k8_paths[name] = descend_cuda.LAUNCHES_K8
+        return out
+
+    def pipe_cores(slam):
+        cores = [make_pipeline_track_core(cam, slam.extractor)]
+        if slam.streaming:
+            cores.append(make_streaming_track_core(cam, slam.extractor))
+        if isinstance(slam, MonoViSlam):
+            cores += list(make_vi_pipeline_core(cam, slam.extractor, slam.ext, slam.imu_noise).graphs.values())
+        return cores
+
+    def timed(name, fn, times):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return wrapped
+
+    def drive(slam, sequence, frames, vi=False, times=None, blank=(), paced=False):
+        """Feed frames of `sequence`; per frame (state, n_tracked, n_kfs,
+        loops closed, host ms, whether a mapping job ran)."""
+        lc = slam.loop_closer
+        if times is not None and lc is not None:
+            for name in ("add_keyframe", "detect", "compute_sim3"):
+                setattr(lc, name, timed(name, getattr(lc, name), times))
+            lc.gba_fn = timed("post-loop GBA", lc.gba_fn, times)
+        rows = []
+        t_start = time.perf_counter()
+        for i in frames:
+            img = torch.zeros_like(sequence.images[i]) if i in blank else sequence.images[i]
+            ts = float(sequence.timestamps[i])
+            if paced:
+                time.sleep(max(0.0, t_start + ts - time.perf_counter()))
+            jobs = len(slam.job_times)
+            t = time.perf_counter()
+            info = slam.process_frame_vi(img, ts, samples[i]) if vi else slam.process_frame(img, ts)
+            rows.append((info["state"], info["n_tracked"], info["n_kfs"], 0 if lc is None else lc.loops_closed,
+                         (time.perf_counter() - t) * 1e3, len(slam.job_times) > jobs))
+        return rows
+
+    def mono_run(close, times=None):
+        slam = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=close, **LOOP_CONFIG)
+        with _two_view_replay(draws["mono"]) as log:
+            rows = drive(slam, seq, range(LOOP_FRAMES), times=times)
+        _check(bool(log) and all(x is True for x in log if x != "own draw"),
+               f"the replayed two-view draws met other matches: {log}")
+        return slam, rows
+
+    def tail_rmse(traj, t_close):
+        ia, ib = associate(traj[:, 0], seq.timestamps)
+        s_, r_, t_ = umeyama_alignment(traj[ia, 1:4], seq.c_w[ib], with_scale=True)
+        err2 = ((seq.c_w[ib] - (s_ * traj[ia, 1:4] @ r_.T + t_)) ** 2).sum(1)
+        return float(np.sqrt(err2[traj[ia, 0] >= t_close].mean()))
+
+    # ---- lock-step MonoSlam without, then with loop closing -----------------
+    slam_cores = pipe_cores(MonoSlam(cam, device=dev, **LOOP_CONFIG))
+    base, base_rows = counted("MonoSlam, vocabulary, no loop closing", lambda: mono_run(False), slam_cores)
+    slam, rows = counted("MonoSlam + loop closing", lambda: mono_run(True), slam_cores)
+    traj, traj_b = slam.trajectory_tum(), base.trajectory_tum()
+    ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    ate_b = ate_rmse(traj_b[:, 0], traj_b[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    t_close = seq.timestamps[int(0.8 * LOOP_FRAMES)]
+    tail, tail_b = tail_rmse(traj, t_close), tail_rmse(traj_b, t_close)
+    closed_at = next(i for i, r in enumerate(rows) if r[3] >= 1) if slam.loop_closer.loops_closed else -1
+    print(f"{tag} MonoSlam lock-step on the {LOOP_FRAMES}-frame noisy circuit ({LOOP_CONFIG}), the reference's "
+          f"two-view draw: {slam.loop_closer.loops_closed} loop(s) closed (first at frame {closed_at}, keyframe "
+          f"{slam.loop_closer.last_loop_kf}; the reference's golden: keyframe {int(gold['mono_kf'])} -> "
+          f"{int(gold['mono_cand'])}), Sim3 ATE {ate:.4f} m vs {ate_b:.4f} m without loop closing, globally "
+          f"aligned tail RMSE {tail:.4f} vs {tail_b:.4f} m; final {rows[-1][:3]}; the reference's run ATE "
+          f"{float(gold['mono_ate']):.4f} m")
+    _check(slam.loop_closer.loops_closed >= 1 and ate <= ate_b and tail <= 0.8 * tail_b,
+           f"tests/test_e2e_loop.py's contract: {slam.loop_closer.loops_closed} loops, ATE {ate:.4f} vs "
+           f"{ate_b:.4f}, tail {tail:.4f} vs {tail_b:.4f}")
+    _check(np.isfinite(traj).all() and traj.shape[1] == 8, "MonoSlam loop run: trajectory not finite or malformed")
+    # the same run again with the loop closer's stages timed: the same bits
+    times, ess_times = {}, {}
+    graph_opt = lc_module.optimize_sim3_graph
+    lc_module.optimize_sim3_graph = timed("essential graph", graph_opt, ess_times)
+    try:
+        slam, rows = counted("MonoSlam + loop closing, timed", lambda: mono_run(True, times), slam_cores)
+    finally:
+        lc_module.optimize_sim3_graph = graph_opt
+    traj2 = slam.trajectory_tum()
+    same = traj2.shape == traj.shape and np.array_equal(traj2, traj)
+    print(f"{tag} MonoSlam + loop closing, run again with its stages timed: {slam.loop_closer.loops_closed} loop(s), "
+          f"trajectory equal to the first run's bit for bit: {same}")
+    _check(same, "MonoSlam's loop run is not reproducible: two runs on the same frames differ")
+    n_jobs = len(slam.job_times)
+    on_card = dev.type == "cuda"  # on the CPU every wrapper runs its plain version: nothing launches
+    _check(not on_card or k8_paths["MonoSlam + loop closing, timed"] == n_jobs,
+           f"K8 launches {k8_paths['MonoSlam + loop closing, timed']} for {n_jobs} mapping jobs: one a keyframe")
+    loop_job = next((j for j in slam.job_times if "loop" in j), {})
+    steady = lambda a, b: [r[4] for r in rows[a:b] if r[0] == "OK" and not r[5]]  # noqa: E731
+    before, after = steady(5, closed_at), steady(closed_at + 1, LOOP_FRAMES)
+    med = lambda x: float(np.median(x)) if x else float("nan")  # noqa: E731
+    print(f"{tag} loop closing stages (host clock, synchronized): add_keyframe (K8 + pull) median "
+          f"{med(times['add_keyframe']):.3f} ms over {len(times['add_keyframe'])}, detect median "
+          f"{med(times['detect']):.3f} ms, compute_sim3 {', '.join(f'{x:.1f}' for x in times.get('compute_sim3', []))} "
+          f"ms, essential graph ({len(slam.map.keyframes)} keyframes now, 40 iterations) "
+          f"{', '.join(f'{x:.1f}' for x in ess_times.get('essential graph', []))} ms, post-loop GBA "
+          f"{', '.join(f'{x:.1f}' for x in times.get('post-loop GBA', []))} ms; the loop keyframe's mapping job "
+          + ", ".join(f"{k} {v:.1f}" for k, v in loop_job.items()) + f" ms; K8 launches {n_jobs} for {n_jobs} "
+          f"keyframes; steady frame median {med(before):.3f} ms before the closure, {med(after):.3f} ms after")
+
+    # ---- lock-step MonoViSlam with and without loop closing -----------------
+    def vi_run(close, times=None):
+        slam_ = MonoViSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=close, **LOOP_VI_CONFIG)
+        with _two_view_replay(draws["vi"]):
+            rows_ = counted(f"MonoViSlam{' + loop closing' if close else ', vocabulary, no loop closing'}",
+                            lambda: drive(slam_, seq, range(LOOP_FRAMES), vi=True, times=times), pipe_cores(slam_))
+        return slam_, rows_
+
+    vi_times = {}
+    vi_b, _ = vi_run(False)
+    vi, vi_rows = vi_run(True, vi_times)
+    traj, traj_b = vi.trajectory_tum(), vi_b.trajectory_tum()
+    m, m_b, s_, s_b = (ate_rmse(tr[:, 0], tr[:, 1:4], seq.timestamps, seq.c_w, with_scale=sc)
+                       for sc, tr in ((False, traj), (False, traj_b), (True, traj), (True, traj_b)))
+    g = np.asarray(vi.gravity if vi.gravity is not None else np.zeros(3), np.float64)
+    cos = float(g @ synthetic.GRAVITY_W / max(np.linalg.norm(g) * 9.81, 1e-12))
+    worst = 0.0
+    for k in vi.kf_chain:
+        kf = vi.map.keyframes.get(k)
+        if kf is None or not (kf.nav and "state" in kf.nav):
+            continue
+        ns = kf.nav["state"]
+        r_wc = np.asarray(ns.r) @ vi.r_bc
+        c_w = np.asarray(ns.p) + np.asarray(ns.r) @ vi.p_bc
+        worst = max(worst, float(np.abs(kf.r_cw - r_wc.T).max()), float(np.abs(kf.t_cw + r_wc.T @ c_w).max()))
+    print(f"{tag} MonoViSlam lock-step on the noisy circuit with the biased 200 Hz IMU ({LOOP_VI_CONFIG}), the "
+          f"reference's two-view draw: {vi.loop_closer.loops_closed} loop(s) (the golden: keyframe "
+          f"{int(gold['vi_kf'])} -> {int(gold['vi_cand'])}), Sim3 ATE {s_:.4f} vs {s_b:.4f} m without, metric "
+          f"{m:.4f} vs {m_b:.4f} m, gravity cos {cos:.5f}, NavState vs pose {worst:.2e}, VI post-loop GBA "
+          f"{', '.join(f'{x:.1f}' for x in vi_times.get('post-loop GBA', []))} ms")
+    _check(vi.vi_ready and vi_b.vi_ready and vi.loop_closer.loops_closed >= 1 and s_ <= max(1.15 * s_b, 0.02)
+           and s_ <= 0.05 and m <= max(1.2 * m_b, 0.05) and worst <= 1e-4 and cos > 0.995,
+           f"tests/test_e2e_vi_loop.py's contract: loops {vi.loop_closer.loops_closed}, sim3 {s_:.4f}/{s_b:.4f}, "
+           f"metric {m:.4f}/{m_b:.4f}, NavState {worst:.2e}, cos {cos:.5f}")
+
+    # ---- BoW relocalization -------------------------------------------------
+    arc = synthetic.make_sequence(MAPIO_FRAMES, cam=cam, dt=0.1, device=dev)
+    descs = []
+    for i in (0, 10, 20):
+        f = ex.extract(arc.images[i], device=dev)
+        descs.append(f.desc01[f.valid].cpu().numpy())
+    arc_vocab = train_vocabulary(np.concatenate(descs), k=8, depth=3)
+    rel = MonoSlam(cam, device=dev, n_features=800, vocabulary=arc_vocab)
+    rel_rows = counted("MonoSlam BoW relocalization (blackout)",
+                       lambda: drive(rel, arc, range(RELOC_FRAMES), blank=RELOC_BLACKOUT), pipe_cores(rel))
+    states = [r[0] for r in rel_rows]
+    lost = "LOST" in states
+    relocalized = lost and "OK" in states[states.index("LOST"):]
+    ok_after = sum(s == "OK" for s in states[RELOC_BLACKOUT[-1] + 1:])
+    print(f"{tag} MonoSlam BoW relocalization after frames {RELOC_BLACKOUT[0]}-{RELOC_BLACKOUT[-1]} go blank: "
+          f"states {''.join(s[0] for s in states)}, {ok_after} frames OK after the blackout, the relocalizing "
+          f"frame {max((r[4] for r in rel_rows[RELOC_BLACKOUT[-1] + 1:]), default=0):.1f} ms at most")
+    _check(lost and relocalized and states[-1] == "OK" and ok_after >= 12,
+           f"tests/test_relocalization.py's contract: {states}")
+
+    build_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(build_dir, exist_ok=True)
+    map_path = os.path.join(build_dir, "stock_vocab_map.npz")
+    mapper = MonoSlam(cam, device=dev, n_features=800, vocabulary=stock)
+    counted("MonoSlam stock vocabulary, mapping run", lambda: drive(mapper, arc, range(MAPIO_FRAMES)),
+            pipe_cores(mapper))
+    _check(mapper.state == "OK", f"the stock-vocabulary mapping run ends {mapper.state}")
+    mapper.save_map(map_path)
+    fresh = MonoSlam(cam, device=dev, n_features=800, vocabulary=stock)
+    counted("load_map with the stock vocabulary", lambda: fresh.load_map(map_path, localization_only=True), [])
+    io_rows = counted("MonoSlam stock vocabulary, relocalization after load_map",
+                      lambda: drive(fresh, arc, range(25, 40)), pipe_cores(fresh))
+    io_states = [r[0] for r in io_rows]
+    print(f"{tag} stock vocabulary ({stock.n_words} words), relocalization after load_map into a fresh MonoSlam: "
+          f"states {''.join(s[0] for s in io_states)}; load_map put {len(fresh.loop_closer.db.bows)} keyframes "
+          f"into the database with {k8_paths['load_map with the stock vocabulary']} K8 launches")
+    _check(not on_card or k8_paths["load_map with the stock vocabulary"] == len(fresh.loop_closer.db.bows),
+           "load_map: one K8 launch a keyframe")
+    _check("OK" in io_states and io_states[-1] == "OK", f"tests/test_map_io.py's contract: {io_states}")
+
+    # ---- the laps: 300 frames, two circuits, the stock vocabulary -----------
+    laps = synthetic.make_sequence(LAPS_FRAMES, cam=cam, dt=0.1, kind="laps", noise_std=LOOP_NOISE, device=dev)
+    lp = MonoSlam(cam, device=dev, n_features=600, kf_max_interval=6, vocabulary=stock, enable_loop_closing=True)
+    t0 = time.perf_counter()
+    lp_rows = counted(f"MonoSlam laps ({LAPS_FRAMES} frames, stock vocabulary)", lambda: drive(lp, laps, range(LAPS_FRAMES)),
+                      pipe_cores(lp))
+    lp_s = time.perf_counter() - t0
+    lp.wait_mapping_idle()
+    traj = lp.trajectory_tum()
+    new_kfs = lp_rows[-1][2] - lp_rows[LAPS_REUSE_FROM][2]
+    tracked = float(np.mean([r[1] for r in lp_rows[LAPS_REUSE_FROM:]]))
+    s_laps = ate_rmse(traj[:, 0], traj[:, 1:4], laps.timestamps, laps.c_w, with_scale=True)
+    n_pts = len(lp.map.active_point_ids())
+    print(f"{tag} MonoSlam laps ({LAPS_FRAMES} frames, 600 features, a keyframe at least every 6, the stock "
+          f"vocabulary): {lp.loop_closer.loops_closed} loop(s), {new_kfs} new keyframes after frame "
+          f"{LAPS_REUSE_FROM}, mean tracked {tracked:.1f}, {len(traj)} trajectory frames, Sim3 ATE {s_laps:.4f} m, "
+          f"{n_pts} points; {lp_s:.1f} s ({LAPS_FRAMES / lp_s:.1f} fps, host clock)")
+    _check(lp.state == "OK" and lp.loop_closer.loops_closed >= 1 and new_kfs <= 15 and tracked >= 120
+           and len(traj) >= 0.85 * LAPS_FRAMES and s_laps < 0.15 and n_pts > 1000,
+           "tests/test_stress.py's laps contract")
+
+    # ---- async MonoSlam with loop closing: the GBA on its own thread --------
+    asy = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, async_mapping=True, **LOOP_CONFIG)
+    try:
+        asy_rows = counted("MonoSlam async + loop closing (camera rate)",
+                           lambda: drive(asy, seq, range(LOOP_FRAMES), paced=True), pipe_cores(asy))
+        asy.wait_mapping_idle()
+        traj = asy.trajectory_tum()
+    finally:
+        asy.shutdown()
+    a_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    # the tracker thread's longest frame against the loop job on the worker:
+    # the loop closer holds the map lock for snapshots and write-backs only
+    a_loop_ms = max((j["total"] for j in asy.job_times if "loop" in j), default=float("nan"))
+    a_frame_ms = max(r[4] for r in asy_rows[5:])
+    a_closed = next((i for i, r in enumerate(asy_rows) if r[3] >= 1), -1)
+    print(f"{tag} MonoSlam async with loop closing, fed at the camera's 10 fps: {asy.loop_closer.loops_closed} "
+          f"loop(s) (the tracker saw it closed at frame {a_closed}), post-loop GBA epochs begun {asy._loop_epoch}, "
+          f"aborted by a newer loop {asy.gba_aborted}, BA write-backs dropped as stale {asy.stale_writebacks}; final "
+          f"{asy.state}, Sim3 ATE {a_ate:.4f} m; GBA threads joined, none left: "
+          f"{not asy._gba_threads and asy._gba_error is None}; the loop job {a_loop_ms:.1f} ms on the worker, the "
+          f"tracker's longest frame {a_frame_ms:.1f} ms (host clock), its frames "
+          f"{a_closed - 3}-{a_closed + 3}: {', '.join(f'{r[4]:.1f}' for r in asy_rows[max(a_closed - 3, 0):a_closed + 4])} ms")
+    _check(asy.loop_closer.loops_closed >= 1 and asy._loop_epoch >= 1 and asy.state == "OK"
+           and not asy._gba_threads and asy._gba_error is None and asy_rows[-1][0] == "OK",
+           "async MonoSlam with loop closing: the loop must close, its GBA thread join cleanly, the run end OK")
+    _check(a_frame_ms < 0.5 * a_loop_ms,
+           f"async MonoSlam with loop closing: the tracker's longest frame {a_frame_ms:.1f} ms against the loop job's "
+           f"{a_loop_ms:.1f} ms: the tracker waited for the closure")
+    # streaming runs the same mapping job on the same worker: loop closing
+    # and the threaded GBA ride along
+    stm = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, streaming=True, **LOOP_CONFIG)
+    try:
+        stm_rows = counted("MonoSlam streaming + loop closing (camera rate)",
+                           lambda: drive(stm, seq, range(LOOP_FRAMES), paced=True), pipe_cores(stm))
+        stm.wait_mapping_idle()
+        traj = stm.trajectory_tum()
+    finally:
+        stm.shutdown()
+    s_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    print(f"{tag} MonoSlam streaming with loop closing, fed at the camera's 10 fps: {stm.loop_closer.loops_closed} "
+          f"loop(s), GBA "
+          f"epochs {stm._loop_epoch}, aborted {stm.gba_aborted}, stale write-backs {stm.stale_writebacks}; final "
+          f"{stm.state}, {len(traj)} trajectory frames, Sim3 ATE {s_ate:.4f} m (envelope max(5 x {ate:.4f}, 0.20) "
+          f"m); GBA threads joined: {not stm._gba_threads and stm._gba_error is None}; the longest dispatch "
+          f"{max(r[4] for r in stm_rows[5:]):.1f} ms (host clock; the backlog gate holds the dispatcher while "
+          f"{stm.mapping_backlog_limit} jobs are unfinished)")
+    _check(not stm._gba_threads and stm._gba_error is None and len(traj) >= 0.8 * LOOP_FRAMES and stm.state == "OK",
+           "streaming MonoSlam with loop closing: its threads must join cleanly, it must keep 80 % of the frames "
+           "and end OK")
+    _check(s_ate <= max(5.0 * ate, 0.20),
+           f"streaming MonoSlam with loop closing: Sim3 ATE {s_ate:.4f} m against tests/test_streaming.py's envelope "
+           f"max(5 x {ate:.4f}, 0.20) m of the lock-step loop run")
+    k8["main_path"] = "MonoSlam + loop closing"
+    return k1_paths, k8_paths, k8
+
+
 def _kernels_per_call(fn) -> int:
     """CUDA kernels (and device copies) one call of fn() launches, by the
     profiler; 0 when the profiler records no device activity."""
@@ -1172,13 +1663,13 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
-
     import numpy as np
 
     from unittest import mock
 
     from viorb_tpu_torch import default_device
-    from viorb_tpu_torch.cuda_build import build_info, find_nvcc, load_library
+    from viorb_tpu_torch.bow import descend_cuda
+    from viorb_tpu_torch.cuda_build import build_info, find_nvcc, load_libraries, load_library
     from viorb_tpu_torch.cuda_graph import WARMUP_CALLS, GraphedFunction
     from viorb_tpu_torch.features import extractor as extractor_module
     from viorb_tpu_torch.features import fast_cuda
@@ -1226,13 +1717,16 @@ def main() -> int:
     print(card)  # as nvidia-smi gives it: name, power limit
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc {nvcc_version}")
 
-    # ---- 2. build --------------------------------------------------------
-    load_library(fast_cuda.LIB_NAME)
-    build_s, build_log = build_info(fast_cuda.LIB_NAME)
-    print(f"build {fast_cuda.LIB_NAME}: {build_s:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # ---- 2. build: one nvcc a source, all started together ----------------
+    t_build = time.perf_counter()
+    load_libraries([fast_cuda.LIB_NAME, descend_cuda.LIB_NAME])
+    print(f"build, in parallel: {time.perf_counter() - t_build:.2f} s")
+    for lib in (fast_cuda.LIB_NAME, descend_cuda.LIB_NAME):
+        build_s, build_log = build_info(lib)
+        print(f"build {lib}: {build_s:.2f} s")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel vs plain on the card ---------------------------------
     cam = PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
@@ -1338,7 +1832,7 @@ def main() -> int:
         captured = core.captured()
         print(f"{name}: warm-up + capture + first replay {time.perf_counter() - t_cap:.2f} s, "
               f"kernel launches in the graph {captured}")
-        _check(captured == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1}],
+        _check(captured == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0}],
                f"{name}: the captured graph must hold exactly one fused K1 launch, got {captured}")
 
     tracked, eager_inputs, graph_launches = {}, {}, {}
@@ -1357,7 +1851,7 @@ def main() -> int:
         launches = core.launches()
         graph_launches[name] = launches["CELL_LAUNCHES"]
         _check(
-            core.replays == N_FRAMES - 1 and launches == {"LAUNCHES": 0, "CELL_LAUNCHES": N_FRAMES - 1}
+            core.replays == N_FRAMES - 1 and launches == {"LAUNCHES": 0, "CELL_LAUNCHES": N_FRAMES - 1, "LAUNCHES_K8": 0}
             and fast_cuda.LAUNCHES == 0 and fast_cuda.CELL_LAUNCHES == 0,
             f"{name}: {core.replays} replays made {launches} launches through the graph and "
             f"{fast_cuda.CELL_LAUNCHES} + {fast_cuda.LAUNCHES} through the eager wrappers; expected "
@@ -1477,7 +1971,7 @@ def main() -> int:
           f"during warm-up + capture + replay; the capture holds {busy_core.captured()}, the wrapper counted "
           f"{fast_cuda.CELL_LAUNCHES} = {made[0]} + {own} warm-up calls")
     _check(made_during > 0, "the second thread made no launch while the graph was captured")
-    _check(busy_core.captured() == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1}] and busy_core.replays == 1,
+    _check(busy_core.captured() == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0}] and busy_core.replays == 1,
            f"a capture beside a busy thread must hold its own launch alone, got {busy_core.captured()}")
     _check(own == WARMUP_CALLS and fast_cuda.LAUNCHES == 0,
            f"launch counts beside a capture: {fast_cuda.CELL_LAUNCHES} counted, {made[0]} made by the thread")
@@ -1639,7 +2133,13 @@ def main() -> int:
     # ---- 8. lock-step visual-inertial SLAM: MonoViSlam --------------------
     threaded_launches["MonoViSlam"] = _vi_phase(cam, dev, tag)
 
-    # ---- 9. times --------------------------------------------------------
+    # ---- 9. place recognition and loop closing ---------------------------
+    loop_k1, loop_k8, k8 = _loop_phase(cam, dev, tag)
+    threaded_launches.update(loop_k1)
+    print(f"K1 launches by path: {json.dumps({'tracking cores': cell_launches, 'MonoSlam': slam_launches, **threaded_launches})}")
+    print(f"K8 launches by path: {json.dumps(loop_k8)}")
+
+    # ---- 10. times -------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -1821,8 +2321,8 @@ def main() -> int:
             "path": f"make_tracking_step, make_pipeline_track_core and make_streaming_track_core, each one "
                     f"CUDA graph a frame, over {N_FRAMES - 1} frames each (launches in the capture x replays); "
                     f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each, async and "
-                    f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames (graph "
-                    f"replays + eager extractions)",
+                    f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames, the loop "
+                    f"phase's MonoSlam and MonoViSlam runs (graph replays + eager extractions)",
             "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
             "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
             "max_abs_err": cells_err,
@@ -1832,6 +2332,23 @@ def main() -> int:
             "bound_by": fused_bound_by,
             "library_ms": None,
             "empty_launch_ms": floor_ms,
+        },
+        {
+            "name": "bow_descend (K8, BoW vocabulary-tree descent by popcount + tf-idf histogram)",
+            "route": "cuda",
+            "source": "viorb_tpu_torch/csrc/bow_descend.cu",
+            "replaces": "viorb_tpu/bow/vocabulary.py:148",
+            "path": f"LoopCloser.add_keyframe in every mapping job of lock-step MonoSlam with loop closing over "
+                    f"the {LOOP_FRAMES}-frame circuit (launches_by_path: every run of the loop phase)",
+            "launches": loop_k8[k8["main_path"]],
+            "launches_by_path": loop_k8,
+            "max_abs_err": k8["max_abs_err"],
+            "max_rel_err": k8["max_rel_err"],
+            "ms": k8["ms"],
+            "plain_ms": k8["plain_ms"],
+            "bound_ms": k8["bound_ms"],
+            "bound_by": k8["bound_by"],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

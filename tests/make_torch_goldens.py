@@ -1,15 +1,15 @@
 """Make the goldens the port is held to: `tests/torch_mono_golden.npz`
 (lock-step and streaming MonoSlam), `tests/torch_vi_golden.npz`
 (lock-step MonoViSlam), `tests/torch_front_golden.npz` (the tracking step
-and cores) and `tests/torch_optim_golden.npz` (the VI optimizers and
-init).
+and cores), `tests/torch_optim_golden.npz` (the VI optimizers and init)
+and `tests/torch_loop_golden.npz` (loop closing).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py [SET ...]           # write
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check [SET ...]   # recompute, compare
 
-SET is `mono`, `vi`, `front` or `optim` (default: all four). The mono set
-is described first; the others at `VI_CONFIGS`, `FRONT_DOC` and
-`OPTIM_DOC`.
+SET is `mono`, `vi`, `front`, `optim` or `loop` (default: all five). The
+mono set is described first; the others at `VI_CONFIGS`, `FRONT_DOC`,
+`OPTIM_DOC` and `LOOP_DOC`.
 
 The JAX package's `MonoSlam` (the reference) runs, lock-step, on the frames
 the PORT's renderer makes on the CPU (`viorb_tpu_torch.io.synthetic.
@@ -519,8 +519,376 @@ def make_optim() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# loop closing (tests/test_torch_loop_closing.py, tests/test_torch_vi_loop.py,
+# tests/test_torch_sim3.py, chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+LOOP_GOLDEN = os.path.join(HERE, "torch_loop_golden.npz")
+LOOP_DOC = """The reference's MonoSlam ("mono", tests/test_e2e_loop.py's configuration)
+and MonoViSlam ("vi", tests/test_e2e_vi_loop.py's), lock-step with loop
+closing, on the port's rendered 100-frame circuit (752x480, dt=0.1 s, pixel
+noise 4.0, 800 features, a keyframe at least every 5 frames) with a
+vocabulary the reference trains (k=8, depth 3) on the features of every
+12th frame (its OrbExtractor, 600 features), the VI run with the biased,
+noisy 200 Hz circuit IMU. Each run records, for the FIRST keyframe whose
+`try_close` closes a loop:
+  * `ckpt_*` (mono only): the map checkpoint (the pipeline's `save_map`) at
+    the entry of that `try_close`; `gck_*`: the checkpoint at the entry of
+    the post-loop GBA (VI extras included). Both are cut to what the loop
+    tests read (`pack_checkpoint`; `load_checkpoint` restores the layout):
+    point arrays to the slots in use, descriptors as little-endian packed
+    bits under `*desc01@bits`, keypoint angles zeroed; `ckpt_` keeps the
+    keypoints and descriptors of the keyframe, the candidate and the
+    keyframe's covisibility group (the seam fusion's targets) and every
+    point's; `gck_` keeps every keyframe's keypoints and no descriptor,
+    BoW, normal or depth range;
+  * the keyframe and its candidate, the loop closer's consistency groups
+    and `last_loop_kf` at that entry;
+  * `ransac_*`: the Sim3 RANSAC's inputs, the reference's 128 minimal sets
+    (the index triples `jax.random.choice` drew from its key) and its
+    output; `refine_*`: `optimize_sim3_reproj`'s inputs and output;
+    `sim3_*`: what `compute_sim3` returned (S12, the confirm count, the
+    matched point pairs); `graph_*`: `optimize_sim3_graph`'s inputs and
+    output;
+  * `corr_*`: the keyframe poses and active points after `correct` (at the
+    entry of the post-loop GBA, with its anchor and the per-keyframe scale);
+    `gba_*`: the same after the post-loop GBA (VI: every keyframe's
+    NavState p, v, r too);
+  * `reloc_*`: the host `transform` of that keyframe's descriptors (words)
+    and `db.query(bow, max_results=5)` on the database at that entry;
+  * the vocabulary, the run's loop count, TUM trajectory and Sim3 ATE, and
+    each two-view RANSAC call's matches and minimal sets (`two_view{i}_*`,
+    as tests/torch_vi_golden.npz holds them).
+Besides, `circle_out_*`: the reference's `optimize_sim3_graph` on
+tests/test_bow_posegraph.py's drifted circle (`circle_graph_problem`), the
+small problem tests/test_torch_sim3.py holds the port's to."""
+LOOP_CONFIG = dict(width=752, height=480, fx=450.0, cx=376.0, cy=240.0, n_frames=100, dt=0.1, kind="circuit",
+                   noise_std=4.0, n_features=800, kf_max_interval=5, vocab_every=12, vocab_features=600,
+                   vocab_k=8, vocab_depth=3)
+LOOP_VI = dict(vi_init_min_time=2.5, vi_init_min_kfs=8)
+LOOP_IMU = dict(hz=200.0, kind="circuit", noise_g=0.002, noise_a=0.03,
+                bias_g=np.array([0.002, -0.001, 0.0015], np.float32),
+                bias_a=np.array([0.03, -0.02, 0.01], np.float32))
+LOOP_RUNS = ("mono", "vi")
+VOCAB_FIELDS = ("children", "centers", "is_leaf", "word_id", "idf")
+
+
+PT_FILL = {"pt_first_kf": -1, "obs_kf": -1, "obs_feat": -1}  # a free point slot's values, else 0
+
+
+def pack_desc(arrays: dict) -> dict:
+    """`*desc01` arrays ((...,256) {0,1}) as packed bits under `*desc01@bits`."""
+    return {(k + "@bits" if k.endswith("desc01") else k): (np.packbits(v, axis=-1, bitorder="little")
+                                                           if k.endswith("desc01") else v)
+            for k, v in arrays.items()}
+
+
+def pack_checkpoint(arrays: dict, keep_kfs=(), for_ba: bool = False) -> dict:
+    """A checkpoint's arrays for the golden, cut to what the loop tests read:
+    point arrays to the slots in use; keypoint angles zeroed (only tracking
+    reads them); descriptors as packed bits, a keyframe's zeroed outside
+    `keep_kfs`. `for_ba` (the checkpoint a post-loop GBA starts from): every
+    keyframe's keypoints kept, its BoW dropped, the points' descriptors,
+    normals and depth range zeroed (a BA reads poses, points and
+    observations only)."""
+    n = int(arrays["_next_pt"])
+    out = {}
+    for k, v in arrays.items():
+        if k.startswith("pt_") or k.startswith("obs_"):
+            v = v[:n]
+        if k.startswith("kf") and k[2].isdigit():
+            kf, field = int(k[2:k.index("_")]), k[k.index("_") + 1:]
+            if field == "angle" or (field == "desc01" and kf not in keep_kfs) or (
+                    field == "xy" and not for_ba and kf not in keep_kfs):
+                v = np.zeros_like(v)
+            if field == "bow" and for_ba:
+                continue
+        if for_ba and k in ("pt_desc01", "pt_normal", "pt_min_dist", "pt_max_dist"):
+            v = np.zeros_like(v)
+        out[k] = v
+    return pack_desc(out)
+
+
+def load_checkpoint(data: dict, prefix: str) -> dict:
+    """The checkpoint arrays stored under `prefix` in a golden, as `save_map`
+    wrote them (descriptors unpacked, point arrays padded back to
+    `max_points`)."""
+    arrays = {k[len(prefix):]: v for k, v in data.items() if k.startswith(prefix)}
+    out = {}
+    m = int(arrays["max_points"])
+    for k, v in arrays.items():
+        if k.endswith("desc01@bits"):
+            k, v = k[:-5], np.unpackbits(v, axis=-1, bitorder="little")
+        if k.startswith("pt_") or k.startswith("obs_"):
+            v = np.concatenate([v, np.full((m - len(v), *v.shape[1:]), PT_FILL.get(k, 0), v.dtype)])
+        out[k] = v
+    return out
+
+
+def loop_inputs(device="cpu"):
+    """(port camera, the port's rendered noisy circuit, the circuit IMU)."""
+    from viorb_tpu_torch.geometry.camera import PinholeCamera
+    from viorb_tpu_torch.io import synthetic
+
+    c = LOOP_CONFIG
+    cam = PinholeCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    seq = synthetic.make_sequence(c["n_frames"], cam=cam, dt=c["dt"], kind=c["kind"], noise_std=c["noise_std"],
+                                  device=device)
+    return cam, seq, synthetic.make_imu(c["n_frames"], c["dt"], **LOOP_IMU)
+
+
+def _sim3_samples(valid, key, n_hypotheses=128):
+    """The index triples the reference's `sim3_ransac` draws from `key`
+    (one split key per hypothesis, `jax.random.choice` without replacement
+    weighted by `valid`), computed under `jax.jit` as the solver does."""
+    import jax
+    import jax.numpy as jnp
+
+    @jax.jit
+    def draw(valid, key):
+        n = valid.shape[0]
+        p = valid.astype(jnp.float32)
+        p = p / jnp.maximum(jnp.sum(p), 1.0)
+        keys = jax.random.split(key, n_hypotheses)
+        return jax.vmap(lambda k: jax.random.choice(k, n, shape=(3,), replace=False, p=p))(keys)
+
+    return np.asarray(draw(jnp.asarray(valid), key), np.int64)
+
+
+def _poses_points(m) -> dict:
+    ids = sorted(m.keyframes)
+    pts = np.nonzero(m.pt_active)[0]
+    return {"kf_ids": np.asarray(ids, np.int64),
+            "r_cw": np.stack([m.keyframes[i].r_cw for i in ids]).astype(np.float32),
+            "t_cw": np.stack([m.keyframes[i].t_cw for i in ids]).astype(np.float32),
+            "pt_ids": pts.astype(np.int64), "pt_xyz": m.pt_xyz[pts].astype(np.float32)}
+
+
+def run_reference_loop(name: str) -> dict:
+    import tempfile
+
+    import viorb_tpu.optim.sim3_refine as ref_refine
+    import viorb_tpu.slam.loop_closing as ref_lc
+    import viorb_tpu.slam.mono as ref_mono
+    from viorb_tpu.bow import train_vocabulary
+    from viorb_tpu.eval.ate import ate_rmse
+    from viorb_tpu.features import OrbExtractor as RefExtractor
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.slam.mono import MonoSlam as RefMonoSlam
+    from viorb_tpu.slam.mono_vi import MonoViSlam as RefMonoViSlam
+
+    c = LOOP_CONFIG
+    cam, seq, imu = loop_inputs()
+    ex = RefExtractor(n_features=c["vocab_features"])
+    descs = []
+    for i in range(0, c["n_frames"], c["vocab_every"]):
+        f = ex.extract(seq.images[i].numpy())
+        descs.append(np.asarray(f.desc01)[np.asarray(f.valid)])
+    vocab = train_vocabulary(np.concatenate(descs), k=c["vocab_k"], depth=c["vocab_depth"])
+
+    rec, cur, two_view_calls = {}, {}, []
+    orig = (ref_lc.LoopCloser.try_close, ref_lc.LoopCloser.compute_sim3, ref_lc.sim3_ransac,
+            ref_refine.optimize_sim3_reproj, ref_lc.optimize_sim3_graph, ref_mono.two_view_init)
+    tmp = tempfile.mkdtemp()
+
+    def group(lc, kf_id):
+        return {kf_id} | {g for g, w in lc.map.covisibility_weights(kf_id).items() if w >= 15}
+
+    def checkpoint():
+        path = os.path.join(tmp, "ckpt.npz")
+        slam.save_map(path)
+        return load(path)
+
+    def try_close(self, kf_id):
+        if rec:
+            return orig[0](self, kf_id)
+        cur.clear()
+        cur["raw_ckpt"] = checkpoint()
+        cur["keep"] = group(self, kf_id)  # the fusion targets
+        kf = self.map.keyframes[kf_id]
+        words, qbow = self.vocab.transform(kf.ensure_desc01(), kf.valid)
+        hits = self.db.query(qbow, max_results=5)
+        cur.update({
+            "kf": np.int64(kf_id), "last_loop_kf": np.int64(self.last_loop_kf),
+            "consistency": np.array(sorted(self._consistency.items()), np.int64).reshape(-1, 2),
+            "reloc_words": np.asarray(words, np.int64),
+            "reloc_hits": np.array([h[0] for h in hits], np.int64),
+            "reloc_scores": np.array([h[1] for h in hits], np.float64),
+        })
+        closed = orig[0](self, kf_id)
+        if closed:
+            raw, keep = cur.pop("raw_ckpt"), cur.pop("keep")
+            if name == "mono":
+                cur.update({f"ckpt_{k}": v for k, v in pack_checkpoint(raw, keep).items()})
+            rec.update(cur)
+        return closed
+
+    def compute_sim3(self, kf_id, cand_id):
+        cur["keep"] |= {cand_id}  # the Sim3 matches the two keyframes
+        out = orig[1](self, kf_id, cand_id)
+        cur["cand"] = np.int64(cand_id)
+        if out is not None:
+            s12, r12, t12, n, (cur_pts, loop_pts) = out
+            cur.update({"sim3_s": np.float32(s12), "sim3_r": np.asarray(r12, np.float32),
+                        "sim3_t": np.asarray(t12, np.float32), "sim3_n": np.int64(n),
+                        "sim3_cur_pts": np.asarray(cur_pts, np.int64), "sim3_loop_pts": np.asarray(loop_pts, np.int64)})
+        return out
+
+    def sim3_ransac(p1, p2, valid, key, **kw):
+        out = orig[2](p1, p2, valid, key, **kw)
+        cur.update({"ransac_p1": np.asarray(p1), "ransac_p2": np.asarray(p2), "ransac_valid": np.asarray(valid),
+                    "ransac_idx": _sim3_samples(valid, key), "ransac_success": np.asarray(out.success),
+                    "ransac_s": np.asarray(out.s), "ransac_r": np.asarray(out.r), "ransac_t": np.asarray(out.t),
+                    "ransac_inliers": np.asarray(out.inliers)})
+        return out
+
+    def refine(s12, r12, t12, x1, uv1, x2, uv2, valid, cam_, **kw):
+        out = orig[3](s12, r12, t12, x1, uv1, x2, uv2, valid, cam_, **kw)
+        names = ("s12", "r12", "t12", "x1", "uv1", "x2", "uv2", "valid")
+        cur.update({f"refine_{k}": np.asarray(v) for k, v in zip(names, (s12, r12, t12, x1, uv1, x2, uv2, valid))})
+        cur.update({f"refine_out_{k}": np.asarray(v) for k, v in zip(("s", "r", "t", "inliers"), out)})
+        return out
+
+    def graph_opt(s, r, t, graph, fixed, **kw):
+        out = orig[4](s, r, t, graph, fixed, **kw)
+        cur.update({"graph_s": np.asarray(s), "graph_r": np.asarray(r), "graph_t": np.asarray(t),
+                    "graph_fixed": np.asarray(fixed), "graph_iters": np.int64(kw.get("iters", 20))})
+        cur.update({f"graph_{k}": np.asarray(v) for k, v in graph._asdict().items()})
+        cur.update({f"graph_out_{k}": np.asarray(v) for k, v in zip(("s", "r", "t"), out)})
+        return out
+
+    def two_view(x1, x2, valid, cam_, key):
+        two_view_calls.append((np.asarray(x1), np.asarray(valid), *_two_view_samples(valid, key)))
+        return orig[5](x1, x2, valid, cam_, key)
+
+    ref_lc.LoopCloser.try_close, ref_lc.LoopCloser.compute_sim3 = try_close, compute_sim3
+    ref_lc.sim3_ransac, ref_refine.optimize_sim3_reproj, ref_lc.optimize_sim3_graph = sim3_ransac, refine, graph_opt
+    ref_mono.two_view_init = two_view
+    try:
+        ref_cam = RefCamera(**cam._asdict())
+        kw = dict(n_features=c["n_features"], kf_max_interval=c["kf_max_interval"], vocabulary=vocab,
+                  enable_loop_closing=True)
+        slam = RefMonoViSlam(ref_cam, **kw, **LOOP_VI) if name == "vi" else RefMonoSlam(ref_cam, **kw)
+        gba = slam.loop_closer.gba_fn
+
+        def gba_fn(anchor, scale_by_kf):
+            if not rec and "corr_kf_ids" not in cur:
+                cur.update({f"corr_{k}": v for k, v in _poses_points(slam.map).items()})
+                cur.update({f"gck_{k}": v for k, v in pack_checkpoint(checkpoint(), for_ba=True).items()})
+                cur["corr_anchor"] = np.int64(anchor)
+                cur["corr_scale"] = np.array([scale_by_kf[k] for k in cur["corr_kf_ids"]], np.float64)
+                gba(anchor, scale_by_kf)
+                cur.update({f"gba_{k}": v for k, v in _poses_points(slam.map).items()})
+                if name == "vi":
+                    ids = cur["gba_kf_ids"]
+                    nav = [slam.map.keyframes[i].nav.get("state") if slam.map.keyframes[i].nav else None
+                           for i in ids]
+                    has = np.array([n is not None for n in nav])
+                    cur["gba_nav_has"] = has
+                    for f in ("p", "v", "r"):
+                        cur[f"gba_nav_{f}"] = np.stack([np.asarray(getattr(n, f), np.float32) if n is not None
+                                                        else np.zeros((3, 3) if f == "r" else 3, np.float32)
+                                                        for n in nav])
+                    cur["gba_kf_chain"] = np.asarray(slam.kf_chain, np.int64)
+                return
+            gba(anchor, scale_by_kf)
+
+        slam.loop_closer.gba_fn = gba_fn
+        prev = -np.inf
+        for image, ts in zip(seq.images, seq.timestamps):
+            if name == "vi":
+                slam.process_frame_vi(image.numpy(), float(ts), imu_between(imu, prev, ts))
+                prev = ts
+            else:
+                slam.process_frame(image.numpy(), float(ts))
+    finally:
+        (ref_lc.LoopCloser.try_close, ref_lc.LoopCloser.compute_sim3, ref_lc.sim3_ransac,
+         ref_refine.optimize_sim3_reproj, ref_lc.optimize_sim3_graph, ref_mono.two_view_init) = orig
+    if not rec:
+        raise RuntimeError(f"the reference's {name} loop run closed no loop")
+    traj = slam.trajectory_tum()
+    out = dict(rec)
+    out.update({"vocab_children": vocab.children, "vocab_is_leaf": vocab.is_leaf, "vocab_word_id": vocab.word_id,
+                "vocab_idf": vocab.idf,
+                "vocab_centers@bits": np.packbits(vocab.centers_pm1 > 0, axis=-1, bitorder="little")})
+    out.update({"loops_closed": np.int64(slam.loop_closer.loops_closed), "traj": traj,
+                "ate": np.float64(ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)),
+                "config": np.array(sorted(dict(LOOP_CONFIG, **(LOOP_VI if name == "vi" else {})).items()), dtype=str)})
+    # the two-view RANSAC's minimal sets, call by call (chip_smoke.py can
+    # replay them: two_view_from_samples)
+    out["two_view_calls"] = np.int64(len(two_view_calls))
+    for i, (x1, valid, idx_h, idx_f) in enumerate(two_view_calls):
+        out.update({f"two_view{i}_x1": x1, f"two_view{i}_valid": valid, f"two_view{i}_idx_h": idx_h,
+                    f"two_view{i}_idx_f": idx_f})
+    return out
+
+
+def circle_graph_problem(seed: int = 3, k: int = 12) -> dict:
+    """tests/test_bow_posegraph.py's drifted circle at k keyframes, numpy f32:
+    the truth (gt_*), the start (s, r, t), exact odometry edges plus the
+    closing edge (edge_*, meas_*, weight) and the fixed first keyframe."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(k) / k
+    c, s_ = np.cos(ang), np.sin(ang)
+    z, o = np.zeros(k), np.ones(k)
+    r_wc = np.stack([np.stack([c, -s_, z], -1), np.stack([s_, c, z], -1), np.stack([z, z, o], -1)], -2)
+    gt_r = np.swapaxes(r_wc, 1, 2).astype(np.float32)
+    gt_t = (-np.einsum("kij,kj->ki", gt_r, 3.0 * np.stack([c, s_, z], -1))).astype(np.float32)
+    ei = np.r_[np.arange(k - 1), k - 1].astype(np.int64)
+    ej = np.r_[np.arange(1, k), 0].astype(np.int64)
+    meas_r = np.einsum("eij,ekj->eik", gt_r[ej], gt_r[ei]).astype(np.float32)
+    meas_t = (gt_t[ej] - np.einsum("eij,ej->ei", meas_r, gt_t[ei])).astype(np.float32)
+    fixed = np.zeros(k, bool)
+    fixed[0] = True
+    return dict(gt_r=gt_r, gt_t=gt_t, s=np.exp(np.linspace(0, 0.15, k)).astype(np.float32), r=gt_r.copy(),
+                t=(gt_t + rng.normal(size=(k, 3)) * np.linspace(0, 0.3, k)[:, None]).astype(np.float32),
+                edge_i=ei, edge_j=ej, meas_s=np.ones(k, np.float32), meas_r=meas_r, meas_t=meas_t,
+                weight=np.ones(k, np.float32), fixed=fixed)
+
+
+CIRCLE_ITERS = 20
+
+
+def run_reference_circle() -> dict:
+    """The reference's `optimize_sim3_graph` on `circle_graph_problem()`
+    (its jit compile alone takes ~10 s on a CPU)."""
+    import jax.numpy as jnp
+    from viorb_tpu.optim.pose_graph import Sim3Graph, optimize_sim3_graph
+
+    p = circle_graph_problem()
+    graph = Sim3Graph(*(jnp.asarray(p[f]) for f in ("edge_i", "edge_j", "meas_s", "meas_r", "meas_t", "weight")))
+    out = optimize_sim3_graph(jnp.asarray(p["s"]), jnp.asarray(p["r"]), jnp.asarray(p["t"]), graph,
+                              jnp.asarray(p["fixed"]), iters=CIRCLE_ITERS)
+    return {f"circle_out_{f}": np.asarray(v) for f, v in zip("srt", out)}
+
+
+def load_vocab_arrays(data: dict, prefix: str) -> dict:
+    """The golden's vocabulary arrays (centers unpacked to (nodes,256) {0,1})."""
+    out = {k: data[f"{prefix}vocab_{k}"] for k in VOCAB_FIELDS if k != "centers"}
+    out["centers"] = np.unpackbits(data[f"{prefix}vocab_centers@bits"], axis=-1, bitorder="little")
+    return out
+
+
+def make_loop() -> dict:
+    """The two loop runs, each in a process of its own, both at once."""
+    import tempfile
+
+    out = {"reference_commit": np.array(reference_commit()), **run_reference_circle()}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen([sys.executable, __file__, "--loop-worker", name,
+                                         os.path.join(tmp, name + ".npz")]) for name in LOOP_RUNS}
+        for name, proc in procs.items():
+            if proc.wait() != 0:
+                raise RuntimeError(f"the reference's loop run {name} failed")
+            for k, v in load(os.path.join(tmp, name + ".npz")).items():
+                out[f"{name}_{k}"] = v
+    return out
+
+
 SETS = {"mono": (GOLDEN, lambda: make_mono()), "vi": (VI_GOLDEN, lambda: make_vi()),
-        "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim())}
+        "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim()),
+        "loop": (LOOP_GOLDEN, lambda: make_loop())}
 
 
 def spread(data: dict) -> list:
@@ -556,6 +924,9 @@ def main(argv) -> int:
     if argv[:1] == ["--worker"]:  # one VI run, in a process of its own (make_vi)
         np.savez_compressed(argv[2], **run_reference_vi(argv[1]))
         return 0
+    if argv[:1] == ["--loop-worker"]:  # one loop run, in a process of its own (make_loop)
+        np.savez_compressed(argv[2], **run_reference_loop(argv[1]))
+        return 0
     check = "--check" in argv
     names = [a for a in argv if a != "--check"] or list(SETS)
     bad_sets = []
@@ -578,6 +949,11 @@ def main(argv) -> int:
                 print(f"{cfg}: init frame {int(data[cfg + '_init_frame'])}, "
                       f"{int(data[cfg + '_n_kfs'][-1])} keyframes, {int(data[cfg + '_n_points'][-1])} points, "
                       f"ATE {float(data[cfg + '_ate']):.4f} m")
+        if name == "loop":
+            for run in LOOP_RUNS:
+                print(f"{run}: first loop at keyframe {int(data[run + '_kf'])} -> {int(data[run + '_cand'])}, "
+                      f"{int(data[run + '_loops_closed'])} loops, S12 scale {float(data[run + '_sim3_s']):.4f}, "
+                      f"confirm {int(data[run + '_sim3_n'])}, ATE {float(data[run + '_ate']):.4f} m")
         if name == "vi":
             for cfg in VI_CONFIGS:
                 print(f"{cfg}: VI init at frame {int(data[cfg + '_init_frame'])}, "

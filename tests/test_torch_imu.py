@@ -17,7 +17,10 @@ JAX reference's, and against closed-form integrals.
   * the pairwise reduction (which groups the products as the reference's
     scan does for its last element) against the plain per-sample
     recursion, `preintegrate_sequential`, within the same 2e-5;
-  * `make_imu` equal to the reference's, array for array.
+  * `make_imu` and `make_trajectory` equal to the reference's, array for
+    array, for every trajectory kind (arc, circuit, laps, spin), and one
+    rendered circuit frame at half size in the closed room within 0.05
+    grey levels, its pixel noise the reference's numpy draw.
 
 One test per file: see tests/test_torch_fast.py."""
 
@@ -30,7 +33,9 @@ from make_torch_goldens import OPTIM_GOLDEN, load
 from torch_vi_problems import imu_problem
 from viorb_tpu import imu as ref_imu
 from viorb_tpu.imu.preintegration import compose_preint as ref_compose
+from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
 from viorb_tpu.io import synthetic as ref_synthetic
+from viorb_tpu_torch.interop import camera_from_fields
 from viorb_tpu_torch.geometry.so3 import exp_so3
 from viorb_tpu_torch.imu import (
     ImuBatch,
@@ -207,6 +212,32 @@ def _make_imu_matches_reference():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(synthetic.GRAVITY_W, ref_synthetic.GRAVITY_W)
+    # every trajectory kind: the poses and the biased, noisy IMU of the loop tests
+    kw = dict(noise_g=0.002, noise_a=0.03, bias_g=np.array([0.002, -0.001, 0.0015], np.float32),
+              bias_a=np.array([0.03, -0.02, 0.01], np.float32))
+    for kind in ("circuit", "laps", "spin"):
+        for g, w in zip(synthetic.make_trajectory(100, 0.1, kind=kind), ref_synthetic.make_trajectory(100, 0.1, kind=kind)):
+            np.testing.assert_array_equal(g, w)
+        for g, w in zip(synthetic.make_imu(30, 0.1, kind=kind, **kw), ref_synthetic.make_imu(30, 0.1, kind=kind, **kw)):
+            np.testing.assert_array_equal(g, w)
+    # one circuit frame at half size in the closed room, the pixel noise on
+    # top: f32 ray-plane arithmetic in another order, <= 0.05 grey levels
+    # (tests/test_torch_tracking.py); the noise is the same numpy draw
+    ref_cam = RefCamera(fx=225.0, fy=225.0, cx=188.0, cy=120.0, width=376, height=240)
+    r_wc, c_w = synthetic.make_trajectory(100, 0.1, kind="circuit")
+    rooms = synthetic.default_room(0, closed=True)
+    ref_rooms = ref_synthetic.default_room(0, closed=True)
+    assert len(rooms) == len(ref_rooms) == 6
+    for p, q in zip(rooms, ref_rooms):
+        np.testing.assert_array_equal(p.texture, q.texture)
+    img = synthetic.render_frame(camera_from_fields(ref_cam), r_wc[40], c_w[40], synthetic.stack_planes(rooms, device="cpu"))
+    np.testing.assert_allclose(img.numpy(), ref_synthetic.render_frame(ref_cam, r_wc[40], c_w[40], ref_rooms),
+                               rtol=0, atol=0.05)
+    seq = synthetic.make_sequence(2, cam=camera_from_fields(ref_cam), dt=0.1, kind="circuit", noise_std=4.0,
+                                  device="cpu")
+    clean = synthetic.render_frame(seq.cam, seq.r_wc[1], seq.c_w[1], synthetic.stack_planes(rooms, device="cpu"))
+    noise = np.random.default_rng(991).normal(0.0, 4.0, (2, 240, 376)).astype(np.float32)[1]
+    np.testing.assert_array_equal(seq.images[1].numpy(), np.clip(clean.numpy() + noise, 0.0, 255.0))
 
 
 def test_imu_matches_reference():

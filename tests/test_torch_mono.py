@@ -42,6 +42,7 @@ import torch
 
 from make_torch_goldens import CONFIGS, SLAM_KEYS, STATES, load
 from viorb_tpu.mapping.serialize import load_map as ref_load_map
+from viorb_tpu_torch.bow import default_vocabulary
 from viorb_tpu_torch.eval.ate import associate, ate_rmse, umeyama_alignment
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.io import synthetic
@@ -80,9 +81,13 @@ def _run(seq, cfg):
     return slam, np.asarray(rows)
 
 
-def _entry_points_refuse_what_is_not_ported(cam):
-    with pytest.raises(NotImplementedError):
-        MonoSlam(cam, device="cpu", vocabulary=object())
+def _entry_points_take_a_vocabulary(cam):
+    # a vocabulary builds the loop closer, wired to the seam fusion and the
+    # post-loop GBA; on an empty map the GBA has nothing to solve
+    slam = MonoSlam(cam, device="cpu", vocabulary=default_vocabulary(), enable_loop_closing=True)
+    assert slam.loop_closer is not None and slam.enable_loop_closing
+    assert slam.loop_closer.gba_fn == slam._post_loop_gba and slam.loop_closer.fuse_fn == slam._fuse_points_into_kf
+    slam._post_loop_gba(0, {})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MonoSlam(cam)
@@ -200,7 +205,7 @@ def test_mono_slam_matches_reference(tmp_path):
     gold = load()
     cam = PinholeCamera(fx=cfg["fx"], fy=cfg["fx"], cx=cfg["cx"], cy=cfg["cy"], width=cfg["width"],
                         height=cfg["height"])
-    _entry_points_refuse_what_is_not_ported(cam)
+    _entry_points_take_a_vocabulary(cam)
     seq = synthetic.make_sequence(cfg["n_frames"], cam=cam, dt=cfg["dt"], device="cpu")
     slam, rows = _run(seq, cfg)
     _matches_golden(slam, rows, seq, gold)

@@ -103,7 +103,8 @@ def _interop_carries_reference_state(scene, gold):
 def _port_imports_no_jax():
     """Every port module imports without JAX or the JAX package: the GPU
     host has neither. The walk reaches the map store, its checkpoints and
-    native helpers, the ATE, PnP, MonoSlam and the VI modules too."""
+    native helpers, the ATE, PnP, MonoSlam, the VI modules and the loop
+    closing modules too, and the port reads its own vocabulary asset."""
     code = (
         "import pkgutil, importlib, sys, viorb_tpu_torch\n"
         "for m in pkgutil.walk_packages(viorb_tpu_torch.__path__, 'viorb_tpu_torch.'):\n"
@@ -116,7 +117,11 @@ def _port_imports_no_jax():
         "assert not torch.backends.cudnn.allow_tf32\n"
         "new = ['viorb_tpu_torch.' + m for m in ('mapping.map', 'mapping.serialize', 'native',\n"
         "       'eval.ate', 'solvers.pnp', 'slam.mono', 'io.synthetic', 'imu.types', 'imu.navstate',\n"
-        "       'imu.preintegration', 'optim.imu_factors', 'slam.vi_init', 'slam.mono_vi', 'eval.gravity')]\n"
+        "       'imu.preintegration', 'optim.imu_factors', 'slam.vi_init', 'slam.mono_vi', 'eval.gravity',\n"
+        "       'geometry.sim3', 'solvers.sim3_solver', 'optim.sim3_refine', 'optim.pose_graph', 'bow',\n"
+        "       'bow.vocabulary', 'bow.database', 'bow.descend_cuda', 'slam.loop_closing')]\n"
+        "from viorb_tpu_torch.bow import default_vocabulary\n"
+        "assert default_vocabulary().n_words == 1000\n"
         "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('viorb_tpu_torch')]))\n"
     )

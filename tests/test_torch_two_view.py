@@ -172,6 +172,8 @@ def _init_outcome_matches(s, want_h):
     idx_h, idx_f = tv.sample_minimal_sets(valid, N_HYPOTHESES, gen)
     assert idx_h.shape == (N_HYPOTHESES, 4) and idx_f.shape == (N_HYPOTHESES, 8)
     assert bool(valid[idx_f].all()) and all(len(set(row.tolist())) == 8 for row in idx_f)
+    # nested as the reference's one-key draw: each H set is its F set's first 4
+    assert torch.equal(idx_h, idx_f[:, :4])
     res = tv.two_view_init(x1, x2, valid, cam, torch.Generator().manual_seed(2), N_HYPOTHESES)
     again = tv.two_view_from_samples(x1, x2, valid, cam, idx_h, idx_f)
     assert torch.equal(res.r_cw2, again.r_cw2) and torch.equal(res.is_inlier, again.is_inlier)

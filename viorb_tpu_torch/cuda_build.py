@@ -14,6 +14,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -29,6 +30,7 @@ NVCC_FLAGS = (
 
 # name -> (ctypes.CDLL, seconds spent building in this process, nvcc output)
 _LOADED: dict = {}
+_LOCK = threading.Lock()  # a worker thread may reach its first kernel beside the caller's
 
 
 def find_nvcc() -> str:
@@ -45,27 +47,50 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _paths(name: str):
+    return os.path.join(CSRC_DIR, name + ".cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    src, lib_path = _paths(name)
+    return not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src)
+
+
+def _start_build(name: str):
+    """(nvcc process writing a temporary library, its path, start time)."""
+    src, lib_path = _paths(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish_build(name: str, build) -> tuple[float, str]:
+    proc, tmp, t0 = build
+    log, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {_paths(name)[0]}:\n{log}")
+    os.replace(tmp, _paths(name)[1])  # atomic: concurrent builders never see half a file
+    return seconds, log
+
+
+def load_libraries(names) -> None:
+    """Build every stale library of `names` at once (one nvcc each, all
+    started together), then load them all."""
+    with _LOCK:
+        builds = {n: _start_build(n) for n in names if n not in _LOADED and _stale(n)}
+        done = {n: _finish_build(n, b) for n, b in builds.items()}
+        for n in names:
+            if n not in _LOADED:
+                _LOADED[n] = (ctypes.CDLL(_paths(n)[1]), *done.get(n, (0.0, "")))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if stale) and load `csrc/<name>.cu` as `lib<name>.so`."""
-    if name in _LOADED:
-        return _LOADED[name][0]
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(lib_path)
-    _LOADED[name] = (lib, seconds, log)
-    return lib
+    load_libraries([name])
+    return _LOADED[name][0]
 
 
 def build_info(name: str) -> tuple[float, str]:

@@ -1,7 +1,8 @@
 """Synthetic textured-room renderer with exact ground truth (port of
-viorb_tpu/io/synthetic.py: the room, the 'arc' trajectory, the frame
-renderer and `make_sequence` for the arc, the arc's analytic IMU), plus the
-tracking benchmark's map lifted from frame 0.
+viorb_tpu/io/synthetic.py: the room, open or closed, the 'arc', 'circuit',
+'laps' and 'spin' trajectories, the frame renderer, `make_sequence` with
+its seeded pixel noise, the analytic IMU of every kind), plus the tracking
+benchmark's map lifted from frame 0.
 
 The room and the trajectory stay numpy, seeded as in the reference, so
 both packages see the same world. `render_frame` is torch and runs on the
@@ -53,14 +54,16 @@ def _make_texture(rng, size=512) -> np.ndarray:
     return tex.astype(np.float32)
 
 
-def default_room(seed: int = 0) -> List[Plane]:
-    """A 10x8x4 m room around the origin (open at the back); the camera
-    starts at the origin looking +z."""
+def default_room(seed: int = 0, closed: bool = False) -> List[Plane]:
+    """A 10x8x4 m room around the origin; the camera starts at the origin
+    looking +z. closed=True adds a back wall at z=-6, so full-turn
+    trajectories (the circuit and the laps) always face texture; the open
+    room renders the forward-looking kinds identically."""
     rng = np.random.default_rng(seed)
     ex = np.array([1.0, 0, 0])
     ey = np.array([0, 1.0, 0])
     ez = np.array([0, 0, 1.0])
-    return [
+    planes = [
         # front wall at z=6
         Plane(np.array([0.0, 0.0, 6.0]), ex, ey, 12.0, 8.0, _make_texture(rng)),
         # left wall x=-5
@@ -72,6 +75,10 @@ def default_room(seed: int = 0) -> List[Plane]:
         # ceiling y=-3
         Plane(np.array([0.0, -3.0, 0.0]), ex, ez, 12.0, 14.0, _make_texture(rng)),
     ]
+    if closed:
+        # back wall at z=-6
+        planes.append(Plane(np.array([0.0, 0.0, -6.0]), ex, ey, 12.0, 8.0, _make_texture(rng)))
+    return planes
 
 
 class PlaneArrays(NamedTuple):
@@ -216,10 +223,59 @@ def _arc_pose_params(ts: np.ndarray):
     return rs, cs
 
 
-def make_trajectory(n_frames: int, dt: float = 0.05) -> Tuple[np.ndarray, np.ndarray]:
-    """The reference's 'arc' trajectory: (r_wc (T,3,3), c_w (T,3)) f32."""
+def _spin_pose_params(ts: np.ndarray):
+    """The 'spin' stress spline: the arc with a smooth Gaussian yaw
+    excursion of 3.1 rad around t = 5 s (~220 deg/s at its peak), through
+    walls no keyframe mapped, with arc-scale translation."""
+    rs_arc, cs = _arc_pose_params(ts)
+    extra = 3.1 * np.exp(-(((ts - 5.0) / 0.7) ** 2))
+    rs = np.stack([_rodrigues_np(np.array([0.0, e, 0.0])) @ r for e, r in zip(extra, rs_arc)])
+    return rs, cs
+
+
+def _circuit_pose_params(ts: np.ndarray, period: float):
+    """The 'circuit' spline: a closed loop with a full 2*pi yaw turn,
+    back at the start pose at t = period; R = R_y(yaw) @ R_x(pitch)."""
+    th = 2 * np.pi * ts / period
+    cs = np.stack([1.4 * np.sin(th), 0.25 * np.sin(2 * th), 0.9 * (1 - np.cos(th))], axis=1).astype(np.float64)
+    yaw = th
+    pitch = 0.08 * np.sin(2 * th + 0.3)
+    rs = []
+    for y, p in zip(yaw, pitch):
+        cy, sy = np.cos(y), np.sin(y)
+        cp, sp = np.cos(p), np.sin(p)
+        r_yaw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        r_pitch = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+        rs.append(r_yaw @ r_pitch)
+    return np.stack(rs), cs
+
+
+KINDS = ("arc", "circuit", "laps", "spin")
+
+
+def _pose_params(kind: str, ts: np.ndarray, n_frames: int, dt: float):
+    """(R (T,3,3), c (T,3)) f64 of trajectory `kind` at times `ts`. The
+    circuit closes at 80 % of the clip and re-traverses its start; the laps
+    are two circuits (the period halved)."""
+    if kind == "circuit":
+        return _circuit_pose_params(ts, 0.8 * (n_frames - 1) * dt)
+    if kind == "laps":
+        return _circuit_pose_params(ts, 0.4 * (n_frames - 1) * dt)
+    if kind == "spin":
+        return _spin_pose_params(ts)
+    if kind == "arc":
+        return _arc_pose_params(ts)
+    raise ValueError(f"unknown synthetic trajectory kind {kind!r}: one of {KINDS}")
+
+
+def make_trajectory(n_frames: int, dt: float = 0.05, kind: str = "arc") -> Tuple[np.ndarray, np.ndarray]:
+    """(r_wc (T,3,3), c_w (T,3)) f32 of the reference's trajectory `kind`:
+    "arc" (a sideways arc with slight yaw), "circuit" (a closed loop that
+    returns exactly to the start pose at 80 % of the frames, for loop
+    closing), "laps" (two circuits) or "spin" (the arc with a fast yaw
+    excursion at t = 5 s)."""
     ts = np.arange(n_frames) * dt
-    rs, cs = _arc_pose_params(ts)
+    rs, cs = _pose_params(kind, ts, n_frames, dt)
     return rs.astype(np.float32), cs.astype(np.float32)
 
 
@@ -246,17 +302,15 @@ def make_imu(
     seed: int = 1,
     kind: str = "arc",
 ) -> SyntheticImu:
-    """Analytic IMU of the 'arc' trajectory (the only kind ported), by dense
-    finite differences of the exact pose spline (O(h^2) at 2 kHz internal
+    """Analytic IMU of make_trajectory's path `kind`, by dense finite
+    differences of the exact pose spline (O(h^2) at 2 kHz internal
     sampling), downsampled to `hz`; optional constant biases and seeded
     white noise."""
-    if kind != "arc":
-        raise NotImplementedError(f"synthetic trajectory kind {kind!r} is not ported: only 'arc'")
     rng = np.random.default_rng(seed)
     t_end = (n_frames - 1) * frame_dt
     h = 1.0 / 2000.0
     tt = np.arange(0.0, t_end + h, h)
-    R, c = _arc_pose_params(tt)
+    R, c = _pose_params(kind, tt, n_frames, frame_dt)
     v = np.gradient(c, h, axis=0)
     a_w = np.gradient(v, h, axis=0)
     # body rates: omega_hat = R^T dR/dt
@@ -297,15 +351,26 @@ def make_sequence(
     seed: int = 0,
     dt: float = 0.05,
     device=None,
+    kind: str = "arc",
+    noise_std: float = 0.0,
 ) -> SyntheticSequence:
-    """The reference's rendered 'arc' sequence, rendered on `device` (the
-    card unless the caller names another), with no disk cache; the frames
-    are f32, as the reference's. The other trajectory kinds, depth and
-    noise are not ported yet; the IMU is `make_imu`."""
+    """The reference's rendered sequence of trajectory `kind`, rendered on
+    `device` (the card unless the caller names another), with no disk
+    cache; the frames are f32, as the reference's. The circuit and the laps
+    render in the closed room. noise_std > 0 adds the reference's seeded
+    per-frame Gaussian pixel noise (numpy, `seed + 991`), clipped to
+    0..255. Depth is not ported yet; the IMU is `make_imu`."""
     cam = cam or PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
-    r_wc, c_w = make_trajectory(n_frames, dt)
-    planes = stack_planes(default_room(seed), device=device)
+    r_wc, c_w = make_trajectory(n_frames, dt, kind=kind)
+    planes = stack_planes(default_room(seed, closed=kind in ("circuit", "laps")), device=device)
     images = [render_frame(cam, r_wc[i], c_w[i], planes) for i in range(n_frames)]
+    if noise_std > 0.0:
+        nrng = np.random.default_rng(seed + 991)
+        images = [
+            (im + torch.from_numpy(nrng.normal(0.0, noise_std, tuple(im.shape)).astype(np.float32)).to(im.device))
+            .clamp(0.0, 255.0)
+            for im in images
+        ]
     return SyntheticSequence(images, r_wc, c_w, np.arange(n_frames) * dt, cam)
 
 

@@ -18,11 +18,15 @@ stereo residual is not ported yet).
     gravity-vertex BA appends a 2-DoF gravity-direction block;
   * Huber weights and chi2 outlier gating between two optimization phases.
 
-The reference buckets per-observation blocks by keyframe with one-hot
-matmuls, because scatters serialize on a TPU. Here the same sums are
-`index_add_` segment sums; the results (S, b, the update) are the
-reference's, the layout is not. On the card `index_add_` adds with atomics,
-so sums over a keyframe's observations come in a run-dependent order.
+The per-keyframe sums over the observations are one-hot matmuls, as the
+reference buckets them: a GEMM adds in an order fixed by its shapes, where
+`index_add_`'s float atomics on the card add a keyframe's thousands of
+blocks in a run-dependent order, and a whole SLAM run would then differ
+from run to run. The sums that stay `index_add_` are order-free: each
+(landmark, keyframe) slot receives one nonzero block, and each slot of the
+IMU chain's system at most two (a chain keyframe ends at most two edges),
+and two additions commute. So a BA on the card gives the same bits every
+run.
 
 Nothing in the BAs syncs with the host: accept/reject is a
 `torch.where`, the Cholesky is `cholesky_ex`. Keyframe indices must lie in
@@ -151,11 +155,11 @@ def _schur_system(r, Jp, Jl, w, obs: BAObservations, k: int, d: int, lm_lambda):
     b_l = -torch.einsum("mrci,mrc->mi", wJl, r)
     Hll_inv = _inv3x3(Hll + 1e-8 * torch.eye(3, dtype=r.dtype, device=dev))
 
-    kf = obs.kf_idx.reshape(-1)  # (M*R,)
+    # the observing keyframe of each observation, one-hot (K, M*R)
+    onehot = (obs.kf_idx.reshape(1, -1) == torch.arange(k, device=dev)[:, None]).to(r.dtype)
 
     def by_keyframe(blocks):  # (M,R,...) -> (K,...), summed per observing keyframe
-        out = torch.zeros((k, *blocks.shape[2:]), dtype=r.dtype, device=dev)
-        return out.index_add_(0, kf, blocks.reshape(m * R, *blocks.shape[2:]))
+        return (onehot @ blocks.reshape(m * R, -1)).reshape(k, *blocks.shape[2:])
 
     # keyframe of each observation within its landmark's row of K buckets
     slot = (torch.arange(m, device=dev)[:, None] * k + obs.kf_idx).reshape(-1)

@@ -51,16 +51,30 @@ one `torch.Generator` seeded with `seed`, where the reference splits
 `jax.random` keys: the port picks other hypotheses than the reference, so
 the two are held to each other by outcome, not bit for bit.
 
+With a vocabulary, place recognition runs at the end of every mapping job
+(`slam/loop_closing.py::LoopCloser`: the keyframe's BoW through K8 into the
+database, then, with `enable_loop_closing`, detection, Sim3 verification,
+the essential-graph correction, seam fusion and the post-loop global BA),
+and relocalization takes its candidates from the database. The post-loop
+global BA runs in the job (lock-step) or on a thread of its own with its
+own CUDA stream (async and streaming): mapping and tracking go on, a newer
+loop aborts its write-back (`_loop_epoch`), and keyframes and points made
+while it ran follow their spanning-tree parent's correction.
+
 Not copied from the reference (its faults): the unlocked swap of the
 pending BA (`_ba_lock`: a solve is applied exactly once), the
 deferred-descriptor race (the handle is read once, the write-back only
 fills a missing block, both under `map_lock`), a deferred write-back onto
 a point slot culled and reused meanwhile (`MapStore.pt_gen`, compared with
 the solve's snapshot), and `map_lock` held across fusion's uploads and
-dispatch.
-
-Not ported here: a vocabulary (BoW relocalization and loop closing) and the
-post-loop global BA; each raises NotImplementedError.
+dispatch, and the map lock held across the loop closer's Sim3
+verification, essential-graph solve and seam fusion (here it covers their
+snapshots and write-backs only: the tracker goes on meanwhile, and the
+keyframes it inserts during the solve follow the newest solved keyframe's
+correction). The threaded post-loop GBA moves a keyframe made during its
+solve once, through its spanning-tree parent; the reference moves it twice
+(through the newest solved keyframe in the BA write-back, then through the
+parent).
 """
 
 from __future__ import annotations
@@ -96,11 +110,11 @@ from viorb_tpu_torch.slam.kernels import (
     triangulate_between,
     unpack_local_map,
 )
+from viorb_tpu_torch.slam.loop_closing import LoopCloser
 from viorb_tpu_torch.slam.tracking_loop import TrackCarry, make_pipeline_track_core, make_streaming_track_core
 from viorb_tpu_torch.solvers.pnp import pnp_ransac
 from viorb_tpu_torch.solvers.two_view import two_view_init
 
-_NOT_PORTED = "a vocabulary (BoW relocalization, loop closing) is not ported yet: use vocabulary=None"
 _PAYLOAD = ("xy", "level", "valid", "desc01", "desc_pm1")  # a keyframe's device payload
 
 
@@ -160,18 +174,19 @@ class MonoSlam:
         kf_max_interval: int = 10,
         seed: int = 0,
         vocabulary=None,
+        enable_loop_closing: bool = False,
         async_mapping: bool = False,
         streaming: bool = False,
         streaming_depth: int = 2,
         device=None,
     ):
-        if vocabulary is not None:
-            raise NotImplementedError(_NOT_PORTED)
         self.device = resolve_device(device)
         self._on_card = self.device.type == "cuda"
         self.cam = cam
         self.extractor = OrbExtractor(n_features=n_features)
         self.map = MapStore()
+        # guards the map for snapshots and write-backs (threaded modes)
+        self.map_lock = threading.RLock()
         self.state = "NOT_INITIALIZED"
         self.local_window = local_window
         self.max_local_points = max_local_points
@@ -209,10 +224,23 @@ class MonoSlam:
         # host-clock ms of each mapping job's phases, in order of the jobs
         # (on the worker's clock when async)
         self.job_times: List[Dict[str, float]] = []
+        # place recognition (the reference's KeyFrameDatabase + LoopClosing):
+        # a LoopCloser whenever a vocabulary is given
+        self.vocabulary = vocabulary
+        self.enable_loop_closing = enable_loop_closing
+        self.loop_closer: Optional[LoopCloser] = None
+        self._new_loop_closer()
+        # the post-loop GBA threads (async), each with its CUDA stream; a
+        # loop correction bumps the epoch, which aborts an older GBA's
+        # write-back and drops a BA solved before it
+        self._gba_threads: List[threading.Thread] = []
+        self._gba_error: Optional[BaseException] = None
+        self._loop_epoch = 0  # loop corrections begun when threaded, each with its GBA thread
+        self.gba_aborted = 0  # GBA write-backs aborted by a newer loop
+        self.stale_writebacks = 0  # BA write-backs dropped as solved before a loop correction
 
         # async mapping (the reference's LocalMapping thread)
         self.async_mapping = async_mapping or streaming
-        self.map_lock = threading.RLock()
         self._ba_skips = 0
         self._mapping_queue: "queue.Queue[Optional[int]]" = queue.Queue()
         # the deferred local-BA write-back: (its arrays, the solve's device
@@ -256,6 +284,16 @@ class MonoSlam:
         self.recaptures = 0
         self._threads_key: Optional[tuple] = None
         self._last_info = {"state": self.state, "n_tracked": 0, "n_kfs": 0, "n_points": 0}
+
+    def _new_loop_closer(self):
+        """A fresh LoopCloser on the current map (with a vocabulary), wired
+        to this pipeline's seam fusion and post-loop GBA."""
+        if self.vocabulary is None:
+            return
+        self.loop_closer = LoopCloser(self.map, self.vocabulary, cam=self.cam, device=self.device, lock=self.map_lock)
+        self.loop_closer.gba_fn = self._post_loop_gba
+        self.loop_closer.fuse_fn = self._fuse_points_into_kf
+        self.loop_closer.begin_fn = self._begin_loop_correction
 
     # -- host <-> device ---------------------------------------------------
 
@@ -472,15 +510,27 @@ class MonoSlam:
             self._mapping_queue.put(None)
             self._join(self._worker)
             self._worker = None
+        self._join_gba()
         for _ in range(self._threads_registered):
             cuda_graph.unregister_thread()
         self._threads_registered = 0
 
     @staticmethod
-    def _join(thread: threading.Thread):
-        thread.join(timeout=60)
+    def _join(thread: threading.Thread, timeout: float = 60.0):
+        thread.join(timeout=timeout)
         if thread.is_alive():
-            raise RuntimeError(f"{thread.name} did not stop within 60 s")
+            raise RuntimeError(f"{thread.name} did not stop within {timeout:.0f} s")
+
+    def _join_gba(self):
+        """Join the post-loop GBA threads (each declared to cuda_graph until
+        it is joined) and raise what one of them raised."""
+        while self._gba_threads:
+            self._join(self._gba_threads[0], timeout=300.0)
+            self._gba_threads.pop(0)
+            if self._on_card:
+                cuda_graph.unregister_thread()
+        if self._gba_error is not None:
+            raise RuntimeError("post-loop GBA thread died") from self._gba_error
 
     def wait_mapping_idle(self):
         """Block until the stream and the mapping queue drain and the last
@@ -492,6 +542,7 @@ class MonoSlam:
             self._flush_pending_ba()
             if self._worker_error is not None:
                 raise RuntimeError("mapping worker died") from self._worker_error
+            self._join_gba()
 
     def _mapping_worker(self):
         """The worker thread: one mapping job at a time from the queue, every
@@ -530,13 +581,20 @@ class MonoSlam:
             self.flush_stream()
             if self._stream_failed:
                 # frames failed in flight: the last good frame is several
-                # frames old, so the per-frame velocity no longer applies
+                # frames old, so the per-frame velocity no longer applies.
+                # The stream resumes from a frame the motion model tracked
+                # synchronously: a carry seeded without a velocity on a
+                # fast camera fails again, and the stream cycles through
+                # failure and relocalization (the reference reseeds at once)
                 self.velocity = None
+                self._dev_carry = None
             self._stream_failed = False
             self._stream_fail_count = 0
             self._stream_weak_count = 0
+            resync = self._dev_carry is None and self.state != "NOT_INITIALIZED"
             info = self._process_frame_once(image, ts)
-            if self.state == "OK" and self.last_frame is not None and self.last_frame.r_cw is not None:
+            if (self.state == "OK" and self.last_frame is not None and self.last_frame.r_cw is not None
+                    and not (resync and self.velocity is None)):
                 self._seed_stream_carry()
             self._last_info = info
             return info
@@ -555,7 +613,7 @@ class MonoSlam:
             time.sleep(0.002)
         gate_s = time.perf_counter() - t_gate
         pts, dmap = self._device_local_map()
-        self._reanchor_carry()
+        anchor = self._reanchor_carry()
         carry, outs = self._stream_core(self._dev_carry, self._image(image), *dmap)
         self._dev_carry = carry
         feats = outs[0]
@@ -572,7 +630,7 @@ class MonoSlam:
             while len(self._stream_q) >= depth and self._collector_error is None:
                 self._stream_cv.wait(timeout=1.0)
             self.gate_ms.append((gate_s + time.perf_counter() - t_gate) * 1e3)
-            self._stream_q.append((ts, outs, pts, host, ready))
+            self._stream_q.append((ts, outs, pts, host, ready, anchor))
             self._stream_cv.notify_all()
             queued = len(self._stream_q)
         return dict(self._last_info, queued=queued)
@@ -581,7 +639,9 @@ class MonoSlam:
         """Keep the carry's pose RELATIVE to its keyframe across a published
         map update (BA moves the keyframe): T_f' = T_f o (T_kf_old^-1 o
         T_kf_new), applied on the card from the host delta, no sync. The
-        streaming counterpart of the lock-step post-BA frame resync."""
+        streaming counterpart of the lock-step post-BA frame resync.
+        Returns the anchor the carry is now relative to: (keyframe id, its
+        pose, map version)."""
         delta = None
         with self.map_lock:
             anchor, ver = self._carry_anchor, self.map.version
@@ -598,10 +658,12 @@ class MonoSlam:
             kf = self.map.keyframes.get(self.last_kf_id)
             if kf is not None:
                 self._carry_anchor = (self.last_kf_id, kf.r_cw.copy(), kf.t_cw.copy(), ver)
+            anchor = self._carry_anchor
         if delta is not None:
             c = self._dev_carry
             d_r, d_t = self._up(delta[0], np.float32), self._up(delta[1], np.float32)
             self._dev_carry = TrackCarry(c.r_cw @ d_r, c.r_cw @ d_t + c.t_cw, c.vel_r, c.vel_t)
+        return anchor
 
     def _seed_stream_carry(self):
         last = self.last_frame
@@ -656,7 +718,7 @@ class MonoSlam:
         if last_ready is not None:
             last_ready.synchronize()
             self.collector_waits += 1
-        for ts, outs, pts, host, ready in batch:
+        for ts, outs, pts, host, ready, anchor in batch:
             feats, xy_d, fdesc = outs[0], outs[1], outs[2]
             xy, level, angle, fvalid, pf, r_new, t_new, inl, visible, ok = host
             fr = FrameRecord(
@@ -685,7 +747,6 @@ class MonoSlam:
                 self._last_info = dict(self._last_info, state=self.state)
                 continue
             self._stream_fail_count = 0
-            fr.r_cw, fr.t_cw = r_new, t_new
             self.n_tracked = int(inl.sum())
             # weak streak: 3 accepted frames in a row under 20 inliers mean
             # the carry is sliding off the map: fall back before it derails
@@ -696,17 +757,34 @@ class MonoSlam:
             else:
                 self._stream_weak_count = 0
             self.state = "OK"
-            self._count_tracked(fr, pts, pf, inl, visible)
-            self.frames_since_kf += 1
-            if self._need_new_keyframe(ts):
-                self._insert_keyframe(fr)
-                self.frames_since_kf = 0
-                # anchor the carry to the NEW keyframe at its insertion pose:
-                # when its job publishes, the next dispatch re-anchors the
-                # carry by exactly the insertion -> BA delta
-                with self.map_lock:
-                    self._carry_anchor = (self.last_kf_id, fr.r_cw.copy(), fr.t_cw.copy(), self.map.version)
-            self._record_trajectory(fr, ts)
+            with self.map_lock:
+                # the frame was tracked in the map as its dispatch saw it: a
+                # write-back since (a BA, a loop correction) that moved its
+                # anchor keyframe moves the frame along, as the next
+                # dispatch re-anchors the carry
+                fr.r_cw, fr.t_cw = r_new, t_new
+                akf = None if anchor is None else self.map.keyframes.get(anchor[0])
+                if akf is not None and _moved(akf, anchor):
+                    fr.r_cw, fr.t_cw = _moved_with(r_new, t_new, anchor[1], anchor[2], akf.r_cw, akf.t_cw)
+                self._count_tracked(fr, pts, pf, inl, visible)
+                self.frames_since_kf += 1
+                if self._need_new_keyframe(ts):
+                    self._insert_keyframe(fr)
+                    self.frames_since_kf = 0
+                    # anchor the carry to the NEW keyframe at its insertion
+                    # pose: when its job publishes, the next dispatch
+                    # re-anchors the carry by exactly the insertion -> BA
+                    # delta. If the carry has yet to take its anchor's move,
+                    # the new anchor is the keyframe's pose in the carry's
+                    # frame, so the carry takes that move through it.
+                    ca = self._carry_anchor
+                    ckf = None if ca is None else self.map.keyframes.get(ca[0])
+                    if ckf is not None and _moved(ckf, ca):
+                        r_a, t_a = _moved_with(fr.r_cw, fr.t_cw, ckf.r_cw, ckf.t_cw, ca[1], ca[2])
+                        self._carry_anchor = (self.last_kf_id, r_a, t_a, ca[3])
+                    else:
+                        self._carry_anchor = (self.last_kf_id, fr.r_cw.copy(), fr.t_cw.copy(), self.map.version)
+                self._record_trajectory(fr, ts)
             self.last_frame = fr
             self._last_info = self._info()
 
@@ -1124,20 +1202,29 @@ class MonoSlam:
     def _relocalize(self, fr: FrameRecord) -> bool:
         """Candidate keyframes -> descriptor matching to their map points ->
         PnP RANSAC -> pose-only refinement (reference
-        Tracking::Relocalization, src/Tracking.cc:2127-2291). Without a
-        vocabulary the candidates are the 5 keyframes with the most mutual
-        descriptor matches, one batched Hamming matmul per keyframe."""
+        Tracking::Relocalization, src/Tracking.cc:2127-2291). With a
+        vocabulary the candidates are the keyframe database's 5 best for the
+        frame's BoW (the host transform, as in the reference); without one,
+        the 5 keyframes with the most mutual descriptor matches, one batched
+        Hamming matmul per keyframe."""
+        if self.loop_closer is not None:
+            _, qbow = self.vocabulary.transform(fr.host_desc01(), fr.valid)
         with self.map_lock:  # a snapshot: the worker may cull keyframes meanwhile
             snap = {kid: (kf, kf.point_idx.copy()) for kid, kf in self.map.keyframes.items()}
-        scored = []
-        for kid, (kf_c, pt_ids) in snap.items():
-            has_c = (pt_ids >= 0) & kf_c.valid
-            if has_c.sum() < 15:
-                continue
-            res_c = self._match_keyframe(kf_c, fr, has_c)
-            scored.append((kid, int((res_c.idx >= 0).sum())))
-        cands = sorted(scored, key=lambda x: -x[1])[:5]
+            if self.loop_closer is not None:
+                cands = self.loop_closer.db.query(qbow, max_results=5)
+        if self.loop_closer is None:
+            scored = []
+            for kid, (kf_c, pt_ids) in snap.items():
+                has_c = (pt_ids >= 0) & kf_c.valid
+                if has_c.sum() < 15:
+                    continue
+                res_c = self._match_keyframe(kf_c, fr, has_c)
+                scored.append((kid, int((res_c.idx >= 0).sum())))
+            cands = sorted(scored, key=lambda x: -x[1])[:5]
         for cand_id, _score in cands:
+            if cand_id not in snap:
+                continue
             kf, pt_ids = snap[cand_id]
             has = (pt_ids >= 0) & kf.valid
             (idx,) = self._pull(self._match_keyframe(kf, fr, has).idx)
@@ -1250,8 +1337,21 @@ class MonoSlam:
         with self.map_lock:
             self._cull_points()
             self._cull_keyframes(window)
-            self.map.version += 1
         lap("culling")
+        if self.loop_closer is not None:
+            # place recognition on the settled keyframe (the reference's
+            # LoopClosing step): its BoW into the database through K8, then
+            # detection, verification and correction; the loop closer holds
+            # the map lock for its snapshots and write-backs only
+            self._flush_pending_ba()
+            if kf_id in self.map.keyframes:
+                pay = self._kf_payload(kf_id)
+                self.loop_closer.add_keyframe(kf_id, pay["desc01"], pay["valid"])
+                lap("bow")
+                if self.enable_loop_closing:
+                    self.loop_closer.try_close(kf_id, lap)
+        with self.map_lock:
+            self.map.version += 1
         times["total"] = (time.perf_counter() - t0) * 1e3
         self.job_times.append(times)
 
@@ -1412,6 +1512,31 @@ class MonoSlam:
                 fused += 1
         return fused
 
+    def _fuse_points_into_kf(self, pt_ids: np.ndarray, target_id: int, radius: float = 3.0) -> int:
+        """One-pair Fuse (the loop closer's seam fusion, reference
+        SearchAndFuse): the first `max_local_points` of `pt_ids` projected
+        into keyframe `target_id`, one dispatch and one pull, then the
+        merges. The map lock is held for the snapshot and the merges, not
+        across the dispatch or the pull."""
+        pt_ids = pt_ids[: self.max_local_points]
+        with self.map_lock:
+            tkf = self.map.keyframes.get(target_id)
+            if tkf is None or len(pt_ids) == 0:
+                return 0
+            packed, bits, valid = self._point_payload(pt_ids)
+            valid[: len(pt_ids)] = self.map.pt_active[pt_ids]
+            r_cw, t_cw = tkf.r_cw.copy(), tkf.t_cw.copy()
+        sel = np.full(self.max_local_points, -1, np.int64)
+        sel[: len(pt_ids)] = np.arange(len(pt_ids))
+        pay = self._kf_payload(target_id)
+        point_for_feat, _, _n, _ = fuse_match_gathered(
+            self._up(packed), self._up(bits), self._up(valid), self._up(sel), self._up(r_cw),
+            self._up(t_cw), pay["xy"], pay["desc_pm1"], pay["valid"], self.cam, radius,
+        )
+        (pf,) = self._pull(point_for_feat)
+        with self.map_lock:
+            return self._fuse_apply(pt_ids, pf, target_id)
+
     def _fuse_batch_dispatch(self, kf_id: int, neighbors: List[int]):
         """Dispatch phase of SearchInNeighbors: the new KF's points into each
         neighbor, all neighbor points into the new KF (reference
@@ -1454,28 +1579,30 @@ class MonoSlam:
             launches.append((pt_ids, point_for_feat, target))
         return launches, own, nb_pts
 
-    def _local_ba(self, window: List[int], fixed: List[int], defer: bool = False):
-        """Local BA over `window` with `fixed` anchors. The problem is
-        snapshotted under the map lock and solved outside it; the solve is
-        written back now, or with `defer` by the next `_flush_pending_ba`.
-        The pose block is the window + anchors as they are: the reference
-        pads it to a few bucketed sizes (_pose_bucket), one XLA compile
-        each; eager PyTorch compiles nothing, so padding would only add
-        work. The landmark block keeps the reference's fixed
-        `max_ba_landmarks` rows."""
+    def _local_ba(self, window: List[int], fixed: List[int], max_landmarks: int = 0, abort_check=None,
+                  defer: bool = False, carry_new: bool = True):
+        """BA over `window` with `fixed` anchors and at most `max_landmarks`
+        points (0: `max_ba_landmarks`). The problem is snapshotted under the
+        map lock and solved outside it; the solve is written back now, or
+        with `defer` by the next `_flush_pending_ba`, unless `abort_check()`
+        is then true or a loop correction came between (`_loop_epoch`). With
+        `carry_new`, keyframes made after the snapshot ride the solve's
+        correction through the newest solved keyframe. The pose block is the
+        window + anchors as they are: the reference pads it to a few
+        bucketed sizes (_pose_bucket), one XLA compile each; eager PyTorch
+        compiles nothing, so padding would only add work."""
+        max_landmarks = max_landmarks or self.max_ba_landmarks
         with self.map_lock:
             window = [k for k in window if k in self.map.keyframes]
             fixed = [k for k in fixed if k in self.map.keyframes]
             if len(window) < 2:
                 return
-            kf_list, pt_ids, kf_idx, uv, inv_s2, valid = self.map.build_ba_problem(
-                window, fixed, self.max_ba_landmarks
-            )
+            kf_list, pt_ids, kf_idx, uv, inv_s2, valid = self.map.build_ba_problem(window, fixed, max_landmarks)
             if len(pt_ids) == 0:
                 return
             r_cw = np.stack([self.map.keyframes[i].r_cw for i in kf_list])
             t_cw = np.stack([self.map.keyframes[i].t_cw for i in kf_list])
-            points = np.zeros((self.max_ba_landmarks, 3), np.float32)
+            points = np.zeros((max_landmarks, 3), np.float32)
             points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
             # the points' slot generations: a slot culled and reused before a
             # deferred write-back holds another point by then
@@ -1485,8 +1612,9 @@ class MonoSlam:
             # through the newest solved keyframe (_apply_ba_result)
             next_kf = self.map._next_kf
             solved = [i for s, i in enumerate(kf_list) if not fixed_mask[s]]
-            ref_id = max(solved, default=-1)
+            ref_id = max(solved, default=-1) if carry_new else -1
             ref_pre = None if ref_id < 0 else (r_cw[kf_list.index(ref_id)].copy(), t_cw[kf_list.index(ref_id)].copy())
+            epoch = self._loop_epoch
         state = VisionBAState(self._up(r_cw, np.float32), self._up(t_cw, np.float32), self._up(points))
         obs = BAObservations(
             kf_idx=self._up(kf_idx, np.int64), uv=self._up(uv),
@@ -1494,10 +1622,9 @@ class MonoSlam:
         )
         out, obs2 = vision_ba_two_phase(state, obs, self.cam, self._up(fixed_mask))
         job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, obs2.valid),
-               self._record_ready(), next_kf, ref_id, ref_pre)
+               self._record_ready(), next_kf, ref_id, ref_pre, abort_check, epoch)
         if not defer:
-            self._apply_ba_result(*job)
-            return
+            return self._apply_ba_result(*job)
         with self._ba_lock:
             if self._pending_ba is not None:  # each job flushes before it solves
                 raise RuntimeError("a deferred BA is already pending")
@@ -1513,15 +1640,24 @@ class MonoSlam:
                 self._apply_ba_result(*job)
 
     def _apply_ba_result(self, kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, solution, ready, next_kf, ref_id,
-                         ref_pre):
+                         ref_pre, abort_check, epoch):
         """One pull of the solve (after its event, from any thread), then the
         write-back under the map lock: poses of the solved keyframes; the
         keyframes made after the snapshot carried along through the newest
         solved keyframe (the reference's post-GBA spanning-tree pass); the
         points still in their slots; the observations BA marked as
-        outliers removed. Publishes with `map.version`."""
+        outliers removed. Publishes with `map.version`. Nothing is written
+        when `abort_check()` says a newer loop superseded the solve or a
+        loop correction rewrote the map after the snapshot (applying a
+        pre-correction solution would undo it)."""
         r_new, t_new, p_new, valid_new = self._pull(*solution, after=ready)
         with self.map_lock:
+            if abort_check is not None and abort_check():
+                self.gba_aborted += 1
+                return False
+            if epoch != self._loop_epoch:
+                self.stale_writebacks += 1
+                return False
             for s, i in enumerate(kf_list):
                 if not fixed_mask[s] and i in self.map.keyframes:
                     self.map.keyframes[i].r_cw = r_new[s]
@@ -1548,10 +1684,100 @@ class MonoSlam:
                 for s in np.nonzero(dropped[row])[0]:
                     self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
             self.map.version += 1
+        return True
+
+    def _begin_loop_correction(self):
+        """Called by the loop closer under the map lock as a correction
+        snapshots the map. Threaded: a new loop epoch, which aborts an older
+        post-loop GBA's write-back and drops a BA solved before it, so
+        nothing but keyframe insertion moves the map while the essential
+        graph is solved."""
+        if self.async_mapping:
+            self._loop_epoch += 1
 
     def _post_loop_gba(self, anchor_kf: int, scale_by_kf=None):
-        """The post-loop global BA: belongs to loop closing, not ported yet."""
-        raise NotImplementedError(_NOT_PORTED)
+        """Full-map BA after a loop correction, anchored at the loop (old
+        side) keyframe (reference RunGlobalBundleAdjustment, vision flavour;
+        `scale_by_kf`, each keyframe's local world-scale change, is for the
+        VI override). Lock-step: in the mapping job. Async: on a thread of
+        its own (the reference spawns one a loop), declared to cuda_graph
+        before it starts and joined by `wait_mapping_idle`, `shutdown` and
+        `_recapture`; the loop epoch it was started in decides whether its
+        write-back still applies."""
+        if not self.async_mapping:
+            return self._post_loop_gba_impl(anchor_kf, scale_by_kf, None)
+        with self.map_lock:
+            epoch = self._loop_epoch
+        stream = None
+        if self._on_card:
+            # the GBA's stream starts after what the calling (worker) stream queued
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            cuda_graph.register_thread()
+        t = threading.Thread(target=self._gba_thread_main, args=(anchor_kf, scale_by_kf, epoch, stream),
+                             name="viorb-gba", daemon=True)
+        self._gba_threads.append(t)
+        t.start()
+
+    def _gba_thread_main(self, anchor_kf, scale_by_kf, epoch, stream):
+        try:
+            with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                self._post_loop_gba_impl(anchor_kf, scale_by_kf, epoch)
+        except Exception as e:  # surfaced by wait_mapping_idle / shutdown
+            self._gba_error = e
+
+    def _post_loop_gba_impl(self, anchor_kf: int, scale_by_kf, epoch):
+        """The global solve: every keyframe, the anchor fixed, every active
+        point (the landmark block the next power of two >= their count: a
+        truncated point set leaves the rest of the map inconsistent with the
+        new poses, and later local BAs drag the trajectory back toward it).
+        Threaded (`epoch` not None): afterwards, keyframes made during the
+        solve follow their spanning-tree parent's correction, and points
+        made during it their first keyframe's (reference :738-819)."""
+        with self.map_lock:
+            ids = sorted(self.map.keyframes.keys())
+            if len(ids) < 3:
+                return
+            pre_pose = {i: (kf.r_cw.copy(), kf.t_cw.copy()) for i, kf in self.map.keyframes.items()}
+            pre_pts = self.map.pt_active.copy()
+            n_pts = int(pre_pts.sum())
+        cap = max(self.max_ba_landmarks, 1 << int(np.ceil(np.log2(max(n_pts, 1)))))
+        abort = None if epoch is None else (lambda: self._loop_epoch != epoch)
+        applied = self._local_ba(ids, fixed=[anchor_kf], max_landmarks=cap, abort_check=abort,
+                                 carry_new=epoch is None)
+        if epoch is None or not applied:
+            return
+        with self.map_lock:
+            if self._loop_epoch != epoch:
+                return
+            for i in sorted(self.map.keyframes.keys()):
+                if i in pre_pose:
+                    continue
+                kf = self.map.keyframes[i]
+                p = kf.parent_kf
+                if p not in pre_pose or p not in self.map.keyframes:
+                    continue
+                r_old, t_old = pre_pose[p]
+                pk = self.map.keyframes[p]
+                # its children (and its new points) refer to ITS pre-correction pose
+                pre_pose[i] = (kf.r_cw.copy(), kf.t_cw.copy())
+                r_rel = kf.r_cw @ r_old.T
+                t_rel = kf.t_cw - r_rel @ t_old
+                kf.r_cw = normalize_np(r_rel @ pk.r_cw)
+                kf.t_cw = (r_rel @ pk.t_cw + t_rel).astype(np.float32)
+            n = len(pre_pts)
+            new_pts = np.nonzero(self.map.pt_active[:n] & ~pre_pts)[0]
+            new_pts = np.concatenate([new_pts, n + np.nonzero(self.map.pt_active[n:])[0]])
+            for p_ in new_pts:
+                ref = int(self.map.pt_first_kf[p_])
+                if ref not in pre_pose or ref not in self.map.keyframes:
+                    continue
+                r_old, t_old = pre_pose[ref]
+                kf = self.map.keyframes[ref]
+                x_cam = r_old @ self.map.pt_xyz[p_] + t_old
+                self.map.pt_xyz[p_] = kf.r_cw.T @ (x_cam - kf.t_cw)
+            # the spanning-tree pass moved keyframes after the BA's publication
+            self.map.version += 1
 
     def _can_cull(self, k: int) -> bool:
         """Subclass veto hook (VI: the preintegration time-gap guard)."""
@@ -1601,6 +1827,8 @@ class MonoSlam:
                 for p in pts:
                     self.map.remove_observation(int(p), k)
                 kf.active = False
+                if self.loop_closer is not None:
+                    self.loop_closer.db.remove(k)
                 del self.map.keyframes[k]
                 self._kf_dev.pop(k, None)
                 return
@@ -1646,6 +1874,7 @@ class MonoSlam:
             self._clear_tracking()
             self.traj_entries = []
             self.n_tracked = 0
+            self._new_loop_closer()
 
     def set_localization_mode(self, enabled: bool):
         """Track against the frozen map without inserting keyframes
@@ -1666,7 +1895,8 @@ class MonoSlam:
         """Load a checkpointed map and resume from it. The next frame
         relocalizes into the loaded map (descriptor matching + PnP); with
         localization_only the map stays frozen, otherwise mapping continues
-        from the loaded keyframes."""
+        from the loaded keyframes. With a vocabulary every loaded keyframe's
+        BoW goes into a fresh keyframe database."""
         from viorb_tpu_torch.mapping.serialize import load_map
 
         self.wait_mapping_idle()
@@ -1677,6 +1907,10 @@ class MonoSlam:
             self.state = "LOST" if active else "NOT_INITIALIZED"
             self.localization_only = localization_only
             self._clear_tracking()
+            self._new_loop_closer()
+            if self.loop_closer is not None:
+                for k in active:
+                    self.loop_closer.add_keyframe(k)
 
     # -- output --------------------------------------------------------------
 
@@ -1721,6 +1955,19 @@ class MonoSlam:
         q = matrix_to_quat(torch.from_numpy(np.stack(r_wcs).astype(np.float32))).numpy()  # (w,x,y,z)
         c = np.stack(centers)
         return np.concatenate([np.asarray(ts)[:, None], c, q[:, 1:4], q[:, :1]], axis=1).astype(np.float64)
+
+
+def _moved(kf, anchor) -> bool:
+    """Whether keyframe `kf` left the pose `anchor` (id, r_cw, t_cw,
+    version) recorded."""
+    return not (np.array_equal(kf.r_cw, anchor[1]) and np.array_equal(kf.t_cw, anchor[2]))
+
+
+def _moved_with(r, t, r_from, t_from, r_to, t_to):
+    """T o (T_from^-1 o T_to): the pose (r, t), held relative to a keyframe
+    that moved from T_from to T_to, moved along with it."""
+    rd = r @ r_from.T
+    return normalize_np(rd @ r_to), (rd @ (t_to - t_from) + t).astype(np.float32)
 
 
 def normalize_np(R: np.ndarray) -> np.ndarray:

@@ -33,9 +33,12 @@ sizes, `_pose_bucket`, and the multi-stride edge list to multiples of 16,
 one XLA compile per shape; eager PyTorch compiles nothing, and the padded
 slots and edges are fixed or invalid, so they never change a result).
 
-Not ported here: the async and streaming modes (ROADMAP queue 1, D5) and
-the post-loop global BA (loop closing, Slice E); each raises
-NotImplementedError.
+With a vocabulary and `enable_loop_closing`, a loop correction ends in the
+VI flavour of the post-loop global BA (`_post_loop_gba`): NavStates
+re-derived from the corrected poses, then the full-chain VI BA.
+
+Not ported here: the async and streaming modes (ROADMAP queue 1, D5); they
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,7 +63,6 @@ from viorb_tpu_torch.slam.vi_init import estimate_gyro_bias, try_vi_init
 IMU_SAFE_WINDOW = 3.0  # seconds of IMU-only tracking allowed
 _NOT_PORTED_D5 = ("MonoViSlam runs lock-step only: async mapping and streaming VI are not ported yet "
                   "(ROADMAP queue 1, D5)")
-_NOT_PORTED_E = "the VI post-loop global BA belongs to loop closing, not ported yet (ROADMAP Slice E)"
 
 
 class MonoViSlam(MonoSlam):
@@ -654,7 +656,42 @@ class MonoViSlam(MonoSlam):
         return fr
 
     def _post_loop_gba(self, anchor_kf: int, scale_by_kf=None):
-        raise NotImplementedError(_NOT_PORTED_E)
+        """VI flavour of the post-loop global BA (reference
+        RunGlobalBundleAdjustment -> GlobalBundleAdjustmentNavState and the
+        NavState propagation): every keyframe's NavState re-derived from its
+        corrected camera pose, the world velocity rotated into the corrected
+        frame (Vw2 = Rwb2 Rwb1^T Vw1: the body-frame velocity is invariant)
+        and scaled by the keyframe's local world-scale change; then the
+        full-chain VI BA, so the IMU chain and the closed loop settle
+        together (the scale-free vision GBA would fight the IMU's metric
+        scale); then the tracker re-based on the corrected newest keyframe.
+        Before VI init, the vision GBA."""
+        if not self.vi_ready:
+            return super()._post_loop_gba(anchor_kf, scale_by_kf)
+        p_cb = -(self.r_bc.T @ self.p_bc)
+        with self.map_lock:
+            for kf_id, kf in self.map.keyframes.items():
+                if not (kf.nav and "state" in kf.nav):
+                    continue
+                ns = kf.nav["state"]
+                r_wc = kf.r_cw.T
+                r_wb_new = r_wc @ self.r_bc.T
+                p_wb_new = -r_wc @ kf.t_cw + r_wc @ p_cb
+                s_loc = 1.0 if scale_by_kf is None else float(scale_by_kf.get(kf_id, 1.0))
+                v_new = s_loc * (r_wb_new @ np.asarray(ns.r).T @ np.asarray(ns.v))
+                kf.nav["state"] = ns._replace(p=p_wb_new.astype(np.float32), v=v_new.astype(np.float32),
+                                              r=r_wb_new.astype(np.float32))
+            chain = [k for k in self.kf_chain if k in self.map.keyframes]
+        if len(chain) >= 3:
+            self._vi_local_ba(chain[-1], window_size=len(chain), iters=(10, 8))
+        # the tracker restarts from the corrected newest keyframe: the
+        # marginalized frame prior and the last frame's NavState are stale
+        last = self.map.keyframes[chain[-1]]
+        if last.nav and "state" in last.nav:
+            self._set_nav_cur(last.nav["state"])
+        self.frame_prior = None
+        self._nav_last_frame = None
+        self.velocity = None
 
     # -- VI local BA -----------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Geometric solvers: triangulation and two-view initialization."""
+"""Geometric solvers: triangulation, two-view initialization and the Sim3
+RANSAC."""
 
 from viorb_tpu_torch.solvers.triangulation import (  # noqa: F401
     parallax_cos,
@@ -6,3 +7,4 @@ from viorb_tpu_torch.solvers.triangulation import (  # noqa: F401
     triangulate_two_view,
 )
 from viorb_tpu_torch.solvers.two_view import TwoViewResult, two_view_init  # noqa: F401
+from viorb_tpu_torch.solvers.sim3_solver import Sim3Result, horn_sim3, sim3_from_samples, sim3_ransac  # noqa: F401

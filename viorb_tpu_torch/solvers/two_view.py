@@ -208,13 +208,16 @@ def sample_minimal_sets(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RANSAC minimal sets: ((n_hypotheses,4), (n_hypotheses,8)) int64 row
     indices drawn without replacement from the valid matches, on `valid`'s
-    device. The draw runs on the generator's device. Invalid rows keep a
-    vanishing weight, so with too few valid matches the draw still returns
-    (degenerate sets that score poorly) instead of raising."""
+    device. Each hypothesis draws ONE ordered 8-set and its H set is the
+    first 4 of it: the reference draws both sets from one key, and they
+    come out nested the same way (the first 4 of an ordered draw without
+    replacement are distributed as a 4-draw). The draw runs on the
+    generator's device. Invalid rows keep a vanishing weight, so with too
+    few valid matches the draw still returns (degenerate sets that score
+    poorly) instead of raising."""
     p = (valid.to(torch.float32) + 1e-9).to(generator.device).expand(n_hypotheses, -1)
-    idx_h = torch.multinomial(p, 4, replacement=False, generator=generator)
     idx_f = torch.multinomial(p, 8, replacement=False, generator=generator)
-    return idx_h.to(valid.device), idx_f.to(valid.device)
+    return idx_f[:, :4].contiguous().to(valid.device), idx_f.to(valid.device)
 
 
 def two_view_init(
