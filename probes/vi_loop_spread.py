@@ -5,10 +5,11 @@ two-view draws replayed, without and with loop closing, several times.
     python3 probes/vi_loop_spread.py [--deterministic]
 
 Prints each run's Sim3 and metric ATE, its loop (keyframe, candidate, S12
-scale, matched pairs) and keyframe count. --deterministic runs in PyTorch's
+scale, matched pairs), keyframe count and a hash of its trajectory's bits
+(equal hashes: runs equal bit for bit). --deterministic runs in PyTorch's
 deterministic mode (as chip_smoke.py's loop pairs do) and 2 + 2 runs;
 otherwise 2 runs without and 4 with loop closing."""
-import os, sys, time, numpy as np
+import hashlib, os, sys, time, numpy as np
 DETERMINISTIC = "--deterministic" in sys.argv
 if DETERMINISTIC:
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -59,6 +60,6 @@ def run(close):
     s = ate_rmse(tr[:, 0], tr[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
     m = ate_rmse(tr[:, 0], tr[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)
     print(f"close={close}: sim3 {s:.4f} metric {m:.4f} loops {rec.get('loops')} kfs {len(slam.map.keyframes)} "
-          f"init_time {slam.init_time:.2f} scale(extent) {np.linalg.norm(np.ptp(tr[:,1:4],0))/np.linalg.norm(np.ptp(seq.c_w,0)):.4f}", flush=True)
+          f"bits {hashlib.sha1(tr.tobytes()).hexdigest()[:12]} init_time {slam.init_time:.2f} scale(extent) {np.linalg.norm(np.ptp(tr[:,1:4],0))/np.linalg.norm(np.ptp(seq.c_w,0)):.4f}", flush=True)
 for close in (False, True, False, True) if DETERMINISTIC else (False, True, True, False, True, True):
     t = time.time(); run(close); print(f"  {time.time()-t:.1f} s", flush=True)

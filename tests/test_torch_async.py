@@ -164,6 +164,11 @@ def _flush_applies_once(slam):
 
 
 def _reused_slot_left_alone(slam):
+    # a solve with work to do: the window's points nudged off the optimum
+    # the BA before this one left them at (from there a BA may accept no step)
+    window = sorted(slam.map.keyframes)[-4:]
+    nudged = slam.map.local_map_points(window)
+    slam.map.pt_xyz[nudged] += np.float32(0.01)
     kf_list, pt_ids = _pending_ba(slam)[:2]
     moved = [int(p) for p in pt_ids[:20]]
     culled = moved[0]

@@ -10,6 +10,7 @@ and PyTorch's current stream as `ctypes.c_void_p`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -31,6 +32,11 @@ NVCC_FLAGS = (
 # name -> (ctypes.CDLL, seconds spent building in this process, nvcc output)
 _LOADED: dict = {}
 _LOCK = threading.Lock()  # a worker thread may reach its first kernel beside the caller's
+# nvcc builds and library loads, by the name of the thread that made them:
+# a pipeline builds and loads on the thread that constructs it, never on a
+# worker (a build inside a mapping job stalls the job by seconds)
+BUILDS_BY_THREAD: "collections.Counter[str]" = collections.Counter()
+LOADS_BY_THREAD: "collections.Counter[str]" = collections.Counter()
 
 
 def find_nvcc() -> str:
@@ -79,12 +85,15 @@ def _finish_build(name: str, build) -> tuple[float, str]:
 def load_libraries(names) -> None:
     """Build every stale library of `names` at once (one nvcc each, all
     started together), then load them all."""
+    thread = threading.current_thread().name
     with _LOCK:
         builds = {n: _start_build(n) for n in names if n not in _LOADED and _stale(n)}
         done = {n: _finish_build(n, b) for n, b in builds.items()}
+        BUILDS_BY_THREAD[thread] += len(done)
         for n in names:
             if n not in _LOADED:
                 _LOADED[n] = (ctypes.CDLL(_paths(n)[1]), *done.get(n, (0.0, "")))
+                LOADS_BY_THREAD[thread] += 1
 
 
 def load_library(name: str) -> ctypes.CDLL:

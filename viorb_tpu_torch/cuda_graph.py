@@ -36,7 +36,11 @@ counts its replays, so launches = `launches()` of the graphs + the eager
 counters. `captured()` gives the launches in each capture.
 
 Threads: one call at a time per `GraphedFunction` (its static tensors are
-shared state), one capture at a time in the process. A capture is made in
+shared state; a replay on one stream waits, on the device, for the last
+replay's clones on another), one capture at a time in the process, and
+every capture counted by the name of the thread that made it
+(`CAPTURES_BY_THREAD`): the port captures on the thread that builds a
+pipeline or starts its threads, never on a worker. A capture is made in
 `capture_error_mode="thread_local"`, on a stream of its own: what other
 threads do on the card meanwhile (allocations and eager kernel launches on
 streams of their own: `chip_smoke.py` captures beside such a thread)
@@ -60,6 +64,7 @@ captures at the new key and starts them again.
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -71,6 +76,7 @@ WARMUP_CALLS = 2
 _CAPTURE_LOCK = threading.Lock()  # one stream capture at a time in the process
 _THREADS_LOCK = threading.Lock()
 _card_threads = 0  # threads declared by register_thread() and not yet unregistered
+CAPTURES_BY_THREAD: "collections.Counter[str]" = collections.Counter()  # thread name -> captures made
 
 
 def register_thread() -> None:
@@ -144,16 +150,24 @@ class _Capture:
         with _CAPTURE_LOCK, launch_counts.recording() as self.captured:
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 out = fn(*static_args)
+            CAPTURES_BY_THREAD[threading.current_thread().name] += 1
         self.outputs: List[torch.Tensor] = []
         self.out_spec = _flatten(out, self.outputs)
         self.replays = 0
+        self.done = torch.cuda.Event()  # behind the last replay's clones
+        self.done.record()
 
     def replay(self, flat_args: List[torch.Tensor]):
+        # a replay on another stream than the last must not overwrite the
+        # static tensors before that one's graph and clones have run
+        torch.cuda.current_stream().wait_event(self.done)
         for s, a in zip(self.inputs, flat_args):
             s.copy_(a, non_blocking=True)  # device to device, on the current stream
         self.graph.replay()
         self.replays += 1
-        return _unflatten(self.out_spec, iter([o.clone() for o in self.outputs]))
+        out = _unflatten(self.out_spec, iter([o.clone() for o in self.outputs]))
+        self.done.record()
+        return out
 
 
 class GraphedFunction:

@@ -22,16 +22,26 @@ The per-keyframe sums over the observations are one-hot matmuls, as the
 reference buckets them: a GEMM adds in an order fixed by its shapes, where
 `index_add_`'s float atomics on the card add a keyframe's thousands of
 blocks in a run-dependent order, and a whole SLAM run would then differ
-from run to run. The sums that stay `index_add_` are order-free: each
-(landmark, keyframe) slot receives one nonzero block, and each slot of the
-IMU chain's system at most two (a chain keyframe ends at most two edges),
-and two additions commute. So a BA on the card gives the same bits every
-run.
+from run to run. The IMU chain's edges go into their keyframes' slots by
+one-hot GEMMs too (the global BAs' multi-stride edges give a keyframe many
+edges). The one sum that stays `index_add_` is order-free: each (landmark,
+keyframe) slot receives one nonzero block. So a BA on the card gives the
+same bits every run.
 
 Nothing in the BAs syncs with the host: accept/reject is a
 `torch.where`, the Cholesky is `cholesky_ex`. Keyframe indices must lie in
 [0, K): each BA clamps them once (an invalid slot has weight 0, so the
 keyframe it names receives zeros).
+
+The local BAs run as CUDA graphs, the port's counterpart of the reference's
+one compiled program a shape: `make_local_vision_ba` / `make_local_vi_ba`
+wrap the two-phase solves in a `cuda_graph.GraphedFunction`, and a caller
+pads the pose block to `pose_bucket(K)` (4, then 20, then multiples of 8),
+as the reference pads it, so a window plus its anchors (at most 20
+keyframes) replays one of two graphs. A padded slot is a fixed identity
+pose that no observation names (and, in the VI BA, no valid edge): the
+reduced system gives it a unit row, and the solve of the other slots is the
+same as without it.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch
 
 from torch.func import jacfwd, vmap
 
+from viorb_tpu_torch.cuda_graph import GraphedFunction
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.geometry.so3 import exp_so3
 from viorb_tpu_torch.imu.navstate import NavState, select_nav
@@ -55,6 +66,21 @@ from viorb_tpu_torch.optim.reprojection import (
 from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF, CHI2_VI_9DOF, huber_weight
 
 _STEREO = "stereo observations (obs.ur) are not ported yet: the vision BA is monocular"
+
+GRAPHED_MAX_POSES = 20  # the largest pose bucket of a local BA: windows and anchors replay a graph up to it
+_GRAPHS: dict = {}  # the process-wide local-BA graphs, by kind and camera
+
+
+def pose_bucket(n: int) -> int:
+    """The BA pose count a problem of n poses is padded to (the reference's
+    `viorb_tpu/slam/mono.py::_pose_bucket`): 4 (two-view init), 20 (any
+    local window: 10 keyframes + up to 8 anchors), then multiples of 8 (the
+    global BA, which grows with the map). One graph a bucket."""
+    if n <= 4:
+        return 4
+    if n <= 20:
+        return 20
+    return (n + 7) & ~7
 
 
 class BAObservations(NamedTuple):
@@ -291,6 +317,19 @@ def vision_ba_two_phase(
     return state, obs
 
 
+def make_local_vision_ba(cam: PinholeCamera) -> GraphedFunction:
+    """The local vision BA (`vision_ba_two_phase` at its 5 + 5 iterations) as
+    a `GraphedFunction` of (state, kf_idx, uv, inv_sigma2, valid, fixed_kf)
+    -> (state, the surviving `valid`): one graph per (K, M, R) on the card,
+    the eager solve on the CPU. Process-wide, one per camera."""
+
+    def local_vision_ba(state, kf_idx, uv, inv_sigma2, valid, fixed_kf):
+        out, obs = vision_ba_two_phase(state, BAObservations(kf_idx, uv, inv_sigma2, valid), cam, fixed_kf)
+        return out, obs.valid
+
+    return _GRAPHS.setdefault(("vision", cam), GraphedFunction(local_vision_ba))
+
+
 # ---------------------------------------------------------------------------
 # visual-inertial BA
 # ---------------------------------------------------------------------------
@@ -383,7 +422,10 @@ def _vi_imu_system(nav: NavState, chain: ImuChain, gravity, k: int, basis=None):
     d = 15
     idx_i, idx_j = chain.edges(k)
     ns_i, ns_j = _take(nav, idx_i), _take(nav, idx_j)
-    r, Ji, Jj, Jg, rb, Bi, Bj = _edge_rows(ns_i, ns_j, chain.pre, _edge_whiteners(chain), gravity, basis)
+    edge = _edge_rows(ns_i, ns_j, chain.pre, _edge_whiteners(chain), gravity, basis)
+    # an invalid edge's rows are zeroed, so nothing it holds reaches another
+    # keyframe's slot through a one-hot's zeros below
+    r, Ji, Jj, Jg, rb, Bi, Bj = (torch.where(chain.valid.reshape(-1, *[1] * (x.dim() - 1)), x, 0.0) for x in edge)
     dt = r.dtype
     chi2 = torch.sum(r * r, dim=-1)
     w = (huber_weight(chi2, CHI2_VI_9DOF) * chain.valid.to(dt))[:, None, None]
@@ -396,6 +438,13 @@ def _vi_imu_system(nav: NavState, chain: ImuChain, gravity, k: int, basis=None):
     def outer(a, b):  # (E,c,i), (E,c,j) -> (E,i,j)
         return torch.einsum("eci,ecj->eij", a, b)
 
+    # an edge's blocks are summed into its keyframes' slots by one-hot GEMMs
+    # (a keyframe ends up to 2 edges a stride, and atomics would add them in
+    # a run-dependent order)
+    def by_slot(slots, rows, n):  # (N,), (N,...) -> (n,...)
+        onehot = (slots[None, :] == torch.arange(n, device=slots.device)[:, None]).to(dt)
+        return (onehot @ rows.reshape(len(slots), -1)).reshape(n, *rows.shape[1:])
+
     blocks = torch.cat([
         outer(wJi, Ji) + outer(bBi, Bi),
         outer(wJi, Jj) + outer(bBi, Bj),
@@ -403,18 +452,15 @@ def _vi_imu_system(nav: NavState, chain: ImuChain, gravity, k: int, basis=None):
         outer(wJj, Jj) + outer(bBj, Bj),
     ])
     slots = torch.cat([idx_i * k + idx_i, idx_i * k + idx_j, idx_j * k + idx_i, idx_j * k + idx_j])
-    H = torch.zeros((k * k, d, d), dtype=dt, device=r.device).index_add_(0, slots, blocks)
+    H = by_slot(slots, blocks, k * k)
     rhs_i = torch.einsum("eci,ec->ei", wJi, r) + torch.einsum("eci,ec->ei", bBi, rb)
     rhs_j = torch.einsum("eci,ec->ei", wJj, r) + torch.einsum("eci,ec->ei", bBj, rb)
-    g = torch.zeros((k, d), dtype=dt, device=r.device).index_add_(
-        0, torch.cat([idx_i, idx_j]), -torch.cat([rhs_i, rhs_j])
-    )
+    ends = torch.cat([idx_i, idx_j])
+    g = by_slot(ends, -torch.cat([rhs_i, rhs_j]), k)
     H = H.reshape(k, k, d, d).permute(0, 2, 1, 3).reshape(k * d, k * d)
     if basis is None:
         return H, g.reshape(k * d)
-    C = torch.zeros((k, d, 2), dtype=dt, device=r.device).index_add_(
-        0, torch.cat([idx_i, idx_j]), torch.cat([outer(wJi, Jg), outer(wJj, Jg)])
-    )
+    C = by_slot(ends, torch.cat([outer(wJi, Jg), outer(wJj, Jg)]), k)
     Hgg = torch.einsum("ecg,ech->gh", Jg * w, Jg)
     g_g = -torch.einsum("ecg,ec->g", Jg * w, r)
     return H, g.reshape(k * d), C.reshape(k * d, 2), Hgg, g_g
@@ -514,6 +560,22 @@ def vi_ba_two_phase(
     state, chi2 = vi_ba(state, obs, cam, ext, chain, gravity, fixed_kf, iters2, fixed_lm)
     obs = obs._replace(valid=obs.valid & (chi2 <= CHI2_MONO_2DOF))
     return state, obs
+
+
+def make_local_vi_ba(cam: PinholeCamera, iters: Tuple[int, int] = (5, 5)) -> GraphedFunction:
+    """The local VI BA (`vi_ba_two_phase` over the window's consecutive IMU
+    edges) as a `GraphedFunction` of (state, kf_idx, uv, inv_sigma2, valid,
+    ext, pre, edge_valid, bias_cov_inv_diag, gravity, fixed_kf) -> (state,
+    the surviving `valid`): one graph per shape on the card, the eager solve
+    on the CPU. Process-wide, one per camera and iteration counts."""
+
+    def local_vi_ba(state, kf_idx, uv, inv_sigma2, valid, ext, pre, edge_valid, bias_info, gravity, fixed_kf):
+        obs = BAObservations(kf_idx, uv, inv_sigma2, valid)
+        chain = ImuChain(pre, edge_valid, bias_info)
+        out, obs = vi_ba_two_phase(state, obs, cam, ext, chain, gravity, fixed_kf, iters[0], iters[1])
+        return out, obs.valid
+
+    return _GRAPHS.setdefault(("vi", cam, tuple(iters)), GraphedFunction(local_vi_ba))
 
 
 # ---------------------------------------------------------------------------

@@ -6,16 +6,16 @@ Sim3 propagation and the essential-graph optimization; the post-loop
 global BA is the owning pipeline's `gba_fn`).
 
 It runs inside the mapping job, after keyframe insertion. The map stays
-on the host; `lock` (the owning pipeline's map lock) is held for each
-snapshot of it and each write-back, never across a device solve or a
-pull, so a tracker thread keeps tracking while a closure is verified and
-its essential graph solved. The device work runs on the calling thread's
-stream: the keyframe's BoW through K8 (`bow/descend_cuda.py`), descriptor
-matching, the Sim3 RANSAC, its reprojection refine and the essential
-graph. Keyframes inserted while the graph was solved follow the newest
-solved keyframe's correction. The RANSAC draws from a `torch.Generator`
-seeded 7 on the loop closer's device, where the reference splits
-`PRNGKey(7)`.
+on the host. The owning pipeline holds its map lock (`lock`, an RLock)
+from `add_keyframe` to the end of `try_close`, as the reference's mapping
+job does: no other thread changes the map between a closure's detection
+and its write-back. The loop closer takes the same lock around each
+snapshot and write-back of its own, for a caller that does not hold it
+(re-entrant under the pipeline's). The device work runs on the calling
+thread's stream: the keyframe's BoW through K8 (`bow/descend_cuda.py`),
+descriptor matching, the Sim3 RANSAC, its reprojection refine and the
+essential graph. The RANSAC draws from a `torch.Generator` seeded 7 on the
+loop closer's device, where the reference splits `PRNGKey(7)`.
 
 Not copied from the reference as written: its O(K^2) Python loop that
 builds the essential graph's edges one `jnp` call at a time, and its Python
@@ -291,9 +291,10 @@ class LoopCloser:
         translation), points moved with their reference keyframe's
         correction; the seam merged (the Sim3-verified pairs replaced, the
         loop side's points fused into the current group); then the post-loop
-        global BA, anchored at the candidate. The graph is built from a
-        snapshot and solved outside the lock; the write-back publishes with
-        `map.version`."""
+        global BA, anchored at the candidate. The caller holds the map lock
+        across (the pipeline's mapping job does), so the map the graph was
+        built from is the map it writes back to; the write-back publishes
+        with `map.version`."""
         dev = self.device
         with self.lock:
             if self.begin_fn is not None:
@@ -365,16 +366,6 @@ class LoopCloser:
             # the local map-scale change of each keyframe (world distances near
             # it multiplied by 1/s): the VI pipeline rescales velocities with it
             scale_by_kf = {kf_key: 1.0 / float(s_o[j]) for kf_key, j in slot.items()}
-            # keyframes a tracker thread inserted during the solve follow the
-            # newest solved keyframe: each keeps its pose relative to it, the
-            # translation in the corrected map's scale
-            jn = k - 1
-            for kf_key in sorted(set(self.map.keyframes) - set(slot)):
-                kf = self.map.keyframes[kf_key]
-                x_c = (r[jn] @ (-kf.r_cw.T @ kf.t_cw) + t[jn] - t_o[jn]) / s_o[jn]  # its center, corrected
-                kf.r_cw = (kf.r_cw @ r[jn].T @ r_o[jn]).astype(np.float32)
-                kf.t_cw = (-kf.r_cw @ (r_o[jn].T @ x_c)).astype(np.float32)
-                scale_by_kf[kf_key] = 1.0 / float(s_o[jn])
 
             # the seam: without it the only cross-seam constraint is the loop
             # edge, and the GBA (which sees observations only) relaxes the map back

@@ -27,7 +27,7 @@ ORB-SLAM's Tracking and LocalMapping threads:
 
 The map lives in MapStore on the host (numpy) under `map_lock` (an RLock):
 the threads take it for snapshots and write-backs, never across an upload,
-a dispatch or a pull. Per-frame compute runs on the device: a steady frame
+a dispatch or a pull, except loop closing (below). Per-frame compute runs on the device: a steady frame
 is ONE replay of a graphed core (`tracking_loop.make_pipeline_track_core`,
 or `make_streaming_track_core` when streaming: extraction, projection
 matching with the wide-radius retry, pose LM) and ONE pull of its
@@ -37,7 +37,7 @@ The padded local map is uploaded once per map epoch (`map.version`, the
 reference keyframe) and cached. Frames before initialization and the
 fallback chain (reference-keyframe matching, then relocalization without a
 vocabulary, then LOST) run eagerly; so does the mapping job
-(triangulation, fusion, point statistics, local BA, culling).
+(triangulation, fusion, point statistics, culling), but for its local BA.
 
 Uploads go through pinned host memory and never wait for the device; each
 pull copies into pinned memory and waits once, on the calling thread's
@@ -61,20 +61,25 @@ own CUDA stream (async and streaming): mapping and tracking go on, a newer
 loop aborts its write-back (`_loop_epoch`), and keyframes and points made
 while it ran follow their spanning-tree parent's correction.
 
-Not copied from the reference (its faults): the unlocked swap of the
-pending BA (`_ba_lock`: a solve is applied exactly once), the
+Loop closing holds the map lock from the keyframe's BoW to the end of the
+closure (detection, Sim3 verification, the essential graph, seam fusion),
+as the reference's mapping job does: a tracker thread waits for a
+correction. Not copied from the reference (its faults): the unlocked swap
+of the pending BA (`_ba_lock`: a solve is applied exactly once), the
 deferred-descriptor race (the handle is read once, the write-back only
 fills a missing block, both under `map_lock`), a deferred write-back onto
 a point slot culled and reused meanwhile (`MapStore.pt_gen`, compared with
 the solve's snapshot), and `map_lock` held across fusion's uploads and
-dispatch, and the map lock held across the loop closer's Sim3
-verification, essential-graph solve and seam fusion (here it covers their
-snapshots and write-backs only: the tracker goes on meanwhile, and the
-keyframes it inserts during the solve follow the newest solved keyframe's
-correction). The threaded post-loop GBA moves a keyframe made during its
+dispatch. The threaded post-loop GBA moves a keyframe made during its
 solve once, through its spanning-tree parent; the reference moves it twice
 (through the newest solved keyframe in the BA write-back, then through the
 parent).
+
+The local BAs pad their pose block to the reference's buckets
+(`optim/ba.py::pose_bucket`) and replay one CUDA graph a bucket on the
+card, captured with the cores before the threads start (lock-step: at
+first use); the post-loop global BA runs eagerly. Every kernel library the
+configuration launches is built and loaded by the constructor.
 """
 
 from __future__ import annotations
@@ -89,8 +94,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from viorb_tpu_torch import cuda_graph
+from viorb_tpu_torch import cuda_build, cuda_graph
 from viorb_tpu_torch.device import resolve_device
+from viorb_tpu_torch.features import fast_cuda
 from viorb_tpu_torch.features.extractor import OrbExtractor
 from viorb_tpu_torch.features.matching import (
     hamming_matrix,
@@ -101,8 +107,8 @@ from viorb_tpu_torch.features.matching import (
 )
 from viorb_tpu_torch.geometry.camera import PinholeCamera, undistort_points
 from viorb_tpu_torch.geometry.so3 import matrix_to_quat
-from viorb_tpu_torch.mapping.map import KeyFrameData, MapStore
-from viorb_tpu_torch.optim.ba import BAObservations, VisionBAState, vision_ba_two_phase
+from viorb_tpu_torch.mapping.map import MAX_OBS_PER_POINT, KeyFrameData, MapStore
+from viorb_tpu_torch.optim.ba import GRAPHED_MAX_POSES, VisionBAState, make_local_vision_ba, pose_bucket
 from viorb_tpu_torch.optim.pose_only import PoseObs, pose_optimization_tcw
 from viorb_tpu_torch.slam.kernels import (
     fuse_match_gathered,
@@ -213,6 +219,13 @@ class MonoSlam:
         self._track_core = None
         self._stream_core = None
         self._lm_cache = None
+        # the local BA, one CUDA graph a pose bucket (4, 20) on the card;
+        # local BAs by how they ran ("local": a window and its anchors,
+        # "gba": the post-loop global BA, always eager): replays, eager calls
+        self._ba_graph = make_local_vision_ba(cam)
+        self.ba_replays: Dict[str, int] = {}
+        self.ba_eager_calls: Dict[str, int] = {}
+        self._ba_count_lock = threading.Lock()
         # kf_id -> device payload (immutable per-KF feature tensors)
         self._kf_dev: dict = {}
         # localization-only: track against the existing map, never insert
@@ -241,7 +254,8 @@ class MonoSlam:
 
         # async mapping (the reference's LocalMapping thread)
         self.async_mapping = async_mapping or streaming
-        self._ba_skips = 0
+        self._ba_skips = 0  # BAs skipped in a row
+        self.ba_skipped = 0  # BAs skipped in all
         self._mapping_queue: "queue.Queue[Optional[int]]" = queue.Queue()
         # the deferred local-BA write-back: (its arrays, the solve's device
         # tensors, their event); swapped out and applied under _ba_lock, so a
@@ -274,6 +288,8 @@ class MonoSlam:
         self._stream_fail_count = 0
         self._stream_weak_count = 0
         self._stream_failed = False
+        # the frame the last synchronous streaming call tracked (None after a dispatch)
+        self._sync_frame: Optional[FrameRecord] = None
         self._collector: Optional[threading.Thread] = None
         self._collector_error: Optional[BaseException] = None
         self.collector_waits = 0  # the collector's host waits: one per batch of frames
@@ -284,6 +300,17 @@ class MonoSlam:
         self.recaptures = 0
         self._threads_key: Optional[tuple] = None
         self._last_info = {"state": self.state, "n_tracked": 0, "n_kfs": 0, "n_points": 0}
+        if self._on_card:
+            # every kernel library this configuration launches is built and
+            # loaded here, on the constructing thread, never inside a mapping
+            # job on a worker (a cold nvcc build there stalled a stream's start)
+            if vocabulary is None:
+                cuda_build.load_libraries([fast_cuda.LIB_NAME])
+            else:
+                from viorb_tpu_torch.bow import descend_cuda
+
+                cuda_build.load_libraries([fast_cuda.LIB_NAME, descend_cuda.LIB_NAME])
+                descend_cuda.shared_hist_max_words(self.device)  # loads K8's module into the context
 
     def _new_loop_closer(self):
         """A fresh LoopCloser on the current map (with a vocabulary), wired
@@ -416,7 +443,8 @@ class MonoSlam:
                 # relocalize into the existing map first
                 self.state = "LOST"
                 self.n_tracked = 0
-        self._record_trajectory(fr, ts)
+        if fr.ref is None:  # the motion-model path books its frame itself
+            self._record_trajectory(fr, ts)
         self.last_frame = fr
         return self._info()
 
@@ -481,6 +509,10 @@ class MonoSlam:
                 if self._stream_core is None:
                     self._stream_core = make_streaming_track_core(self.cam, self.extractor)
                 self._stream_core.prepare(TrackCarry(eye, zero, eye, zero), img, *dmap)
+            # the local BA at both pose buckets a window can take (their
+            # shapes do not depend on the frame: a recapture keeps them)
+            for k in sorted({pose_bucket(4), GRAPHED_MAX_POSES}):
+                self._ba_graph.prepare(*self._placeholder_ba(k))
             # the worker's stream starts after what this thread queued so far
             # (the level variances, the first frame's uploads)
             self._worker_stream = torch.cuda.Stream(self.device)
@@ -495,6 +527,25 @@ class MonoSlam:
             t.start()
         self._worker = threads[0]
         self._collector = threads[1] if self.streaming else None
+
+    def _placeholder_ba(self, k: int):
+        """A well-posed local-BA problem of k poses at the local BA's shapes
+        (M = max_ba_landmarks, R = MAX_OBS_PER_POINT) to capture its graph
+        with: identity poses, every observation slot invalid, the points in
+        front of the camera, every pose fixed."""
+        m, r = self.max_ba_landmarks, MAX_OBS_PER_POINT
+        points = np.zeros((m, 3), np.float32)
+        points[:, 2] = 5.0
+        state = VisionBAState(self._up(np.broadcast_to(np.eye(3, dtype=np.float32), (k, 3, 3))),
+                              self._up(np.zeros((k, 3), np.float32)), self._up(points))
+        uv = np.broadcast_to(np.array([self.cam.cx, self.cam.cy], np.float32), (m, r, 2))
+        return (state, self._up(np.zeros((m, r), np.int64)), self._up(uv), self._up(np.ones((m, r), np.float32)),
+                self._up(np.zeros((m, r), bool)), self._up(np.ones(k, bool)))
+
+    def _count_ba(self, kind: str, replayed: bool):
+        counts = self.ba_replays if replayed else self.ba_eager_calls
+        with self._ba_count_lock:
+            counts[kind] = counts.get(kind, 0) + 1
 
     def shutdown(self):
         """Stop the collector and the mapping worker (reference
@@ -581,23 +632,29 @@ class MonoSlam:
             self.flush_stream()
             if self._stream_failed:
                 # frames failed in flight: the last good frame is several
-                # frames old, so the per-frame velocity no longer applies.
-                # The stream resumes from a frame the motion model tracked
-                # synchronously: a carry seeded without a velocity on a
-                # fast camera fails again, and the stream cycles through
-                # failure and relocalization (the reference reseeds at once)
+                # frames old, so the per-frame velocity no longer applies
                 self.velocity = None
                 self._dev_carry = None
             self._stream_failed = False
             self._stream_fail_count = 0
             self._stream_weak_count = 0
-            resync = self._dev_carry is None and self.state != "NOT_INITIALIZED"
+            prev = self.last_frame
             info = self._process_frame_once(image, ts)
-            if (self.state == "OK" and self.last_frame is not None and self.last_frame.r_cw is not None
-                    and not (resync and self.velocity is None)):
+            # The stream resumes only with a velocity measured between this
+            # frame and the frame tracked synchronously just before it. A
+            # carry seeded without one (after initialization or relocalization)
+            # or with one measured across frames lost in flight mispredicts
+            # the next two frames on a fast camera; they fail in flight, and
+            # the stream cycles through failure and resynchronization (the
+            # reference reseeds at once)
+            one_step = prev is not None and prev is self._sync_frame
+            self._sync_frame = self.last_frame if self.state == "OK" else None
+            if (one_step and self.state == "OK" and self.velocity is not None and self.last_frame is not None
+                    and self.last_frame.r_cw is not None):
                 self._seed_stream_carry()
             self._last_info = info
             return info
+        self._sync_frame = None
         if self._stream_core is None:
             self._stream_core = make_streaming_track_core(self.cam, self.extractor)
         # overload guard: while the worker is `mapping_backlog_limit` jobs
@@ -990,8 +1047,17 @@ class MonoSlam:
         (reference-KF matching -> relocalization -> LOST)."""
         if self._track_core is None:
             self._track_core = make_pipeline_track_core(self.cam, self.extractor)
-        r_pred, t_pred = self._predict_pose()
-        pts, dev = self._device_local_map()
+        with self.map_lock:
+            # the prediction, the local map and the reference keyframe's pose
+            # from one map state: a write-back (a BA, a loop correction) that
+            # lands while the frame is tracked moves the frame along with its
+            # reference keyframe before it is booked, as a streamed frame is
+            if self.async_mapping:
+                self._rebase_last_frame()
+            r_pred, t_pred = self._predict_pose()
+            pts, dev = self._device_local_map()
+            kf = self.map.keyframes.get(self.last_kf_id)
+            anchor = None if kf is None else (self.last_kf_id, kf.r_cw.copy(), kf.t_cw.copy())
         feats, xy_d, fdesc, pf_d, r_d, t_d, inl_d, vis_d, _n = self._track_core(
             self._image(image), self._up(r_pred), self._up(t_pred), *dev
         )
@@ -1019,11 +1085,18 @@ class MonoSlam:
         if int((pf >= 0).sum()) < 10 or n_inl < 10:
             self._track(fr)  # rare: the host-stepped fallback chain
             return fr
-        fr.r_cw, fr.t_cw = r_new, t_new
-        self.n_tracked = n_inl
-        self.state = "OK"
-        self._count_tracked(fr, pts, pf, inl, visible)
-        self._track_epilogue(fr)
+        with self.map_lock:
+            fr.r_cw, fr.t_cw = r_new, t_new
+            akf = None if anchor is None else self.map.keyframes.get(anchor[0])
+            if akf is not None and _moved(akf, anchor):
+                fr.r_cw, fr.t_cw = _moved_with(r_new, t_new, anchor[1], anchor[2], akf.r_cw, akf.t_cw)
+                # the last frame into the same map state: the velocity spans one frame
+                self._rebase_last_frame()
+            self.n_tracked = n_inl
+            self.state = "OK"
+            self._count_tracked(fr, pts, pf, inl, visible)
+            self._track_epilogue(fr)
+            self._record_trajectory(fr, ts)
         return fr
 
     def _count_tracked(self, fr: FrameRecord, pts, pf, inl, visible):
@@ -1341,15 +1414,18 @@ class MonoSlam:
         if self.loop_closer is not None:
             # place recognition on the settled keyframe (the reference's
             # LoopClosing step): its BoW into the database through K8, then
-            # detection, verification and correction; the loop closer holds
-            # the map lock for its snapshots and write-backs only
+            # detection, verification and correction, with the map lock held
+            # from the BoW to the end of the closure, as the reference holds
+            # it: the map the closure verified is the map it corrects, and a
+            # tracker thread waits for the correction
             self._flush_pending_ba()
-            if kf_id in self.map.keyframes:
-                pay = self._kf_payload(kf_id)
-                self.loop_closer.add_keyframe(kf_id, pay["desc01"], pay["valid"])
-                lap("bow")
-                if self.enable_loop_closing:
-                    self.loop_closer.try_close(kf_id, lap)
+            with self.map_lock:
+                if kf_id in self.map.keyframes:
+                    pay = self._kf_payload(kf_id)
+                    self.loop_closer.add_keyframe(kf_id, pay["desc01"], pay["valid"])
+                    lap("bow")
+                    if self.enable_loop_closing:
+                        self.loop_closer.try_close(kf_id, lap)
         with self.map_lock:
             self.map.version += 1
         times["total"] = (time.perf_counter() - t0) * 1e3
@@ -1420,6 +1496,7 @@ class MonoSlam:
             fixed = [min(window)]
         if self.async_mapping and not self._mapping_queue.empty() and self._ba_skips < 2:
             self._ba_skips += 1
+            self.ba_skipped += 1
             return
         self._ba_skips = 0
         self._local_ba(window, fixed, defer=self.async_mapping)
@@ -1580,17 +1657,19 @@ class MonoSlam:
         return launches, own, nb_pts
 
     def _local_ba(self, window: List[int], fixed: List[int], max_landmarks: int = 0, abort_check=None,
-                  defer: bool = False, carry_new: bool = True):
+                  defer: bool = False, carry_new: bool = True, kind: str = "local"):
         """BA over `window` with `fixed` anchors and at most `max_landmarks`
         points (0: `max_ba_landmarks`). The problem is snapshotted under the
         map lock and solved outside it; the solve is written back now, or
         with `defer` by the next `_flush_pending_ba`, unless `abort_check()`
         is then true or a loop correction came between (`_loop_epoch`). With
         `carry_new`, keyframes made after the snapshot ride the solve's
-        correction through the newest solved keyframe. The pose block is the
-        window + anchors as they are: the reference pads it to a few
-        bucketed sizes (_pose_bucket), one XLA compile each; eager PyTorch
-        compiles nothing, so padding would only add work."""
+        correction through the newest solved keyframe. The pose block is
+        padded to `pose_bucket` (fixed identity poses no observation names),
+        as the reference pads it; a local BA (`kind` "local") of at most
+        GRAPHED_MAX_POSES poses replays its bucket's graph on the card, any
+        other solve (the post-loop GBA, `kind` "gba") runs eagerly. Counted
+        by kind in `ba_replays` / `ba_eager_calls`."""
         max_landmarks = max_landmarks or self.max_ba_landmarks
         with self.map_lock:
             window = [k for k in window if k in self.map.keyframes]
@@ -1600,14 +1679,18 @@ class MonoSlam:
             kf_list, pt_ids, kf_idx, uv, inv_s2, valid = self.map.build_ba_problem(window, fixed, max_landmarks)
             if len(pt_ids) == 0:
                 return
-            r_cw = np.stack([self.map.keyframes[i].r_cw for i in kf_list])
-            t_cw = np.stack([self.map.keyframes[i].t_cw for i in kf_list])
+            k = pose_bucket(len(kf_list))
+            r_cw = np.broadcast_to(np.eye(3, dtype=np.float32), (k, 3, 3)).copy()
+            t_cw = np.zeros((k, 3), np.float32)
+            r_cw[: len(kf_list)] = [self.map.keyframes[i].r_cw for i in kf_list]
+            t_cw[: len(kf_list)] = [self.map.keyframes[i].t_cw for i in kf_list]
             points = np.zeros((max_landmarks, 3), np.float32)
             points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
             # the points' slot generations: a slot culled and reused before a
             # deferred write-back holds another point by then
             gen = self.map.pt_gen[pt_ids].copy()
-            fixed_mask = np.array([i in fixed for i in kf_list])
+            fixed_mask = np.ones(k, bool)
+            fixed_mask[: len(kf_list)] = [i in fixed for i in kf_list]
             # keyframes made after this snapshot ride the solve's correction
             # through the newest solved keyframe (_apply_ba_result)
             next_kf = self.map._next_kf
@@ -1615,13 +1698,12 @@ class MonoSlam:
             ref_id = max(solved, default=-1) if carry_new else -1
             ref_pre = None if ref_id < 0 else (r_cw[kf_list.index(ref_id)].copy(), t_cw[kf_list.index(ref_id)].copy())
             epoch = self._loop_epoch
-        state = VisionBAState(self._up(r_cw, np.float32), self._up(t_cw, np.float32), self._up(points))
-        obs = BAObservations(
-            kf_idx=self._up(kf_idx, np.int64), uv=self._up(uv),
-            inv_sigma2=self._up(inv_s2), valid=self._up(valid),
-        )
-        out, obs2 = vision_ba_two_phase(state, obs, self.cam, self._up(fixed_mask))
-        job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, obs2.valid),
+        args = (VisionBAState(self._up(r_cw), self._up(t_cw), self._up(points)), self._up(kf_idx, np.int64),
+                self._up(uv), self._up(inv_s2), self._up(valid), self._up(fixed_mask))
+        graphed = self._on_card and kind == "local" and k <= GRAPHED_MAX_POSES
+        out, valid_out = self._ba_graph(*args) if graphed else self._ba_graph.eager(*args)
+        self._count_ba(kind, graphed)
+        job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, valid_out),
                self._record_ready(), next_kf, ref_id, ref_pre, abort_check, epoch)
         if not defer:
             return self._apply_ba_result(*job)
@@ -1688,10 +1770,8 @@ class MonoSlam:
 
     def _begin_loop_correction(self):
         """Called by the loop closer under the map lock as a correction
-        snapshots the map. Threaded: a new loop epoch, which aborts an older
-        post-loop GBA's write-back and drops a BA solved before it, so
-        nothing but keyframe insertion moves the map while the essential
-        graph is solved."""
+        begins. Threaded: a new loop epoch, which aborts an older post-loop
+        GBA's write-back and drops a BA solved before it."""
         if self.async_mapping:
             self._loop_epoch += 1
 
@@ -1744,7 +1824,7 @@ class MonoSlam:
         cap = max(self.max_ba_landmarks, 1 << int(np.ceil(np.log2(max(n_pts, 1)))))
         abort = None if epoch is None else (lambda: self._loop_epoch != epoch)
         applied = self._local_ba(ids, fixed=[anchor_kf], max_landmarks=cap, abort_check=abort,
-                                 carry_new=epoch is None)
+                                 carry_new=epoch is None, kind="gba")
         if epoch is None or not applied:
             return
         with self.map_lock:
@@ -1859,6 +1939,7 @@ class MonoSlam:
         self._stream_failed = False
         self._stream_fail_count = 0
         self._stream_weak_count = 0
+        self._sync_frame = None
         self._lm_cache = None
         self._kf_dev = {}
 

@@ -27,11 +27,16 @@ its key and layout).
 Keyframe NavStates in the map are host NamedTuples of numpy arrays, laid
 out in checkpoints as the reference's.
 
-Deliberate differences from the reference: the VI BAs take the window and
-its anchors as they are (the reference pads the pose block to bucketed
-sizes, `_pose_bucket`, and the multi-stride edge list to multiples of 16,
-one XLA compile per shape; eager PyTorch compiles nothing, and the padded
-slots and edges are fixed or invalid, so they never change a result).
+The VI BAs pad the pose block to the reference's buckets
+(`optim/ba.py::pose_bucket`: padded NavStates are fixed identities with no
+observation and no valid edge), and the local one (the window's
+consecutive edges, at most GRAPHED_MAX_POSES poses) replays one CUDA graph
+a bucket on the card, captured at first use; the VI global BAs
+(post-init, post-loop) and the gravity-vertex BA run eagerly. Deliberate
+difference from the reference: the global BA's multi-stride edge list is
+not padded (the reference pads it to multiples of 16, one XLA compile per
+shape; the eager solve compiles nothing, and padded edges are invalid, so
+they never change a result).
 
 With a vocabulary and `enable_loop_closing`, a loop correction ends in the
 VI flavour of the post-loop global BA (`_post_loop_gba`): NavStates
@@ -53,7 +58,16 @@ import torch
 from viorb_tpu_torch.imu.navstate import NavState
 from viorb_tpu_torch.imu.preintegration import PreintegratedImu, compose_preint, preintegrate_batch
 from viorb_tpu_torch.imu.types import ImuBatch, ImuNoise, padded_arrays
-from viorb_tpu_torch.optim.ba import BAObservations, ImuChain, ViBAState, vi_ba_gw_two_phase, vi_ba_two_phase
+from viorb_tpu_torch.optim.ba import (
+    GRAPHED_MAX_POSES,
+    BAObservations,
+    ImuChain,
+    ViBAState,
+    make_local_vi_ba,
+    pose_bucket,
+    vi_ba_gw_two_phase,
+    vi_ba_two_phase,
+)
 from viorb_tpu_torch.optim.pose_only import ViPosePrior
 from viorb_tpu_torch.optim.reprojection import Extrinsics
 from viorb_tpu_torch.slam.mono import FrameRecord, MonoSlam
@@ -133,6 +147,8 @@ class MonoViSlam(MonoSlam):
         # extrinsics back from the device: once here, never inside a frame)
         self._vi_core = make_vi_pipeline_core(self.cam, self.extractor, self.ext, self.imu_noise)
         self._true = self._up(np.ones((), bool)).reshape(())
+        # the local VI BA, one CUDA graph a pose bucket on the card
+        self._vi_ba_graph = make_local_vi_ba(self.cam)
         # host-clock ms of each VI mapping BA: (kind, ms), in order
         self.vi_ba_times: List[tuple] = []
 
@@ -720,17 +736,21 @@ class MonoViSlam(MonoSlam):
             )
             if len(pt_ids) == 0:
                 return
-            k = len(kf_list)
+            # the pose block padded to its bucket: identity NavStates, fixed
+            k = pose_bucket(len(kf_list))
             # window keyframes have NavStates; fixed anchors made before VI
             # init get vision-derived ones
             navs = []
             for i in kf_list:
                 kf = self.map.keyframes[i]
                 navs.append(kf.nav["state"] if kf.nav and "state" in kf.nav else self._nav_host(kf.r_cw, kf.t_cw))
+            z3 = np.zeros(3, np.float32)
+            navs += [NavState(z3, z3, np.eye(3, dtype=np.float32), z3, z3, z3, z3)] * (k - len(kf_list))
             nav_np = NavState(*(np.stack(x) for x in zip(*navs)))
             points = np.zeros((self.max_ba_landmarks, 3), np.float32)
             points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
-            fixed_mask = np.array([i in fixed or i == min(window) for i in kf_list])
+            fixed_mask = np.ones(k, bool)
+            fixed_mask[: len(kf_list)] = [i in fixed or i == min(window) for i in kf_list]
             # the IMU edges between consecutive window keyframes (slots
             # 0..n_win-1); the default chain's remaining k-1 edges run into the
             # anchors and are invalid
@@ -781,15 +801,25 @@ class MonoViSlam(MonoSlam):
         state = ViBAState(self._nav_up(nav_np), self._up(points))
         obs = BAObservations(kf_idx=self._up(kf_idx, np.int64), uv=self._up(uv), inv_sigma2=self._up(inv_s2),
                              valid=self._up(valid))
-        if optimize_gravity:
+        g_new = None
+        kind = "vi_ba_gw" if optimize_gravity else ("vi_gba" if window_size is not None else "vi_local")
+        if kind == "vi_local" and tuple(iters) == (5, 5) and k <= GRAPHED_MAX_POSES:
+            # the local window: its bucket's graph on the card
+            out, valid_out = self._vi_ba_call(self._vi_ba_graph, state, *obs[:4], self.ext, chain_obj.pre,
+                                              chain_obj.valid, chain_obj.bias_cov_inv_diag, self._f32(gravity),
+                                              self._up(fixed_mask))
+        elif optimize_gravity:
             out, g_new, obs2 = vi_ba_gw_two_phase(state, obs, self.cam, self.ext, chain_obj, self._f32(gravity),
                                                   self._up(fixed_mask), iters1=15, iters2=10)
+            valid_out = obs2.valid
+            self._count_ba(kind, False)
         else:
-            g_new = None
             out, obs2 = vi_ba_two_phase(state, obs, self.cam, self.ext, chain_obj, self._f32(gravity),
                                         self._up(fixed_mask), iters1=iters[0], iters2=iters[1])
+            valid_out = obs2.valid
+            self._count_ba(kind, False)
         # one pull for the whole result
-        pulled = self._pull(*out.nav, out.points, obs2.valid, *([] if g_new is None else [g_new]))
+        pulled = self._pull(*out.nav, out.points, valid_out, *([] if g_new is None else [g_new]))
         nav_new, p_new, valid_new = NavState(*pulled[:7]), pulled[7], pulled[8]
         with self.map_lock:
             if g_new is not None:
@@ -817,5 +847,12 @@ class MonoViSlam(MonoSlam):
                 for s in np.nonzero(dropped[row])[0]:
                     self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
             self.map.version += 1
-        kind = "vi_ba_gw" if optimize_gravity else ("vi_gba" if window_size is not None else "vi_ba")
-        self.vi_ba_times.append((kind, k, (time.perf_counter() - t_start) * 1e3))
+        self.vi_ba_times.append((kind, len(kf_list), (time.perf_counter() - t_start) * 1e3))
+
+    def _vi_ba_call(self, graph, *args):
+        """The local VI BA through `graph`: a replay on the card, the eager
+        solve on the CPU; counted as kind "vi_local"."""
+        replayed = self._on_card
+        out = graph(*args) if replayed else graph.eager(*args)
+        self._count_ba("vi_local", replayed)
+        return out
