@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
-functions, lock-step, async and streaming SLAM, lock-step
+functions, lock-step, async and streaming SLAM, lock-step and async
 monocular-inertial SLAM, and place recognition and loop closing on one
 NVIDIA GPU.
 
@@ -91,7 +91,21 @@ Phases, in order; any failure raises and exits non-zero:
      core graphed and eager, K7 (the preintegration) alone, VI init, vi_ba
      and vi_ba_gw per LM iteration, the VI mapping job; then twelve runs with
      the port's own draws (seeds 0-11), reported beside the reference's
-     seeds 0-5;
+     seeds 0-5. Then async MonoViSlam (the rebase epoch) at
+     tests/test_async_vi.py's configuration on the same draw: fed un-paced,
+     that test's contract (VI ready, > 60 % of frames OK, gravity cos >
+     0.99, metric ATE < 0.12 m), the tracker's frame times by kind, the
+     worker's jobs and VI BAs, the re-bases and BAs skipped; drained after
+     every frame, its positions within 0.01 m RMS of the lock-step run's;
+     and lock-step MonoViSlam on the spin sequence with
+     tests/test_stress.py's assertions (an IMU-only bridge through a fast
+     yaw excursion, recovery, the tail's metric ATE < 0.6 m); last, the
+     300-frame laps with the IMU at the camera's rate, lock-step then
+     async, long enough that the async tracker runs beside its worker past
+     VI init's refinement window: both VI-ready with gravity cos > 0.99, the
+     async run beside a running job, keyframes carried through a VI BA's
+     write-back, frames tracked across one; its outcome beside lock-step's
+     reported, not enforced;
   9. place recognition and loop closing: K8 (the BoW descent, ONE launch
      of one thread-block cluster) against its plain twin (words
      torch.equal, weights within 1e-6 relative) on the stock and a trained
@@ -112,17 +126,20 @@ Phases, in order; any failure raises and exits non-zero:
      BoW relocalization after a blackout (tests/test_relocalization.py)
      and with the stock vocabulary after load_map (tests/test_map_io.py);
      the 300-frame laps of tests/test_stress.py; async MonoSlam with loop
-     closing fed at the camera's rate (the loop closes, the GBA thread
-     joins cleanly, epochs begun / aborted and stale write-backs printed,
-     the run ends OK with its Sim3 ATE within tests/test_streaming.py's
-     threaded envelope of the lock-step loop run's, max(5x, 0.20 m); the
-     tracker's longest frame and its frames around the closure printed:
-     the job holds the map lock across the closure, as the reference's
-     does), and streaming MonoSlam with loop closing at the camera's rate
-     (its threads join cleanly, >= 80 % of the frames kept, final OK, Sim3
+     closing fed at the camera's rate (the loop closes, the post-loop GBA
+     runs in the loop job on the mapping worker, the run ends OK with its
+     Sim3 ATE within tests/test_streaming.py's threaded envelope of the
+     lock-step loop run's, max(5x, 0.20 m); the tracker's longest frame and
+     its frames around the closure printed: the job holds the map lock
+     across the closure and its GBA), async MonoViSlam with loop closing at
+     the camera's rate (the loop closes, the VI post-loop GBA runs in the
+     loop job on the mapping worker, Sim3 ATE within max(5x the lock-step
+     VI loop run's, 0.20 m), the loop job and the tracker's longest frame
+     printed), and streaming MonoSlam with loop closing at the camera's
+     rate (the GBA in the loop job, >= 80 % of the frames kept, final OK, Sim3
      ATE within the same envelope; loops, the first jobs and the dispatches
      around the closure printed); no kernel build, library load or graph
-     capture off the main thread in either; K1 and K8 launches by path
+     capture off the main thread in any of them; K1 and K8 launches by path
      (K8's global path 0 on each);
  10. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
@@ -185,6 +202,10 @@ BLACKOUT, BLACKOUT_FRAMES, RECOVERED_FROM = range(9, 15), 28, 16
 # a threaded run whose frames switch from float32 to uint8 at this frame
 SWITCH_AT, SWITCH_FEATURES = 20, 800
 ASYNC_RUNS = 5  # un-paced async at tests/test_async_mapping.py's configuration
+SPIN_FRAMES = 100  # tests/test_stress.py's spin sequence
+# async MonoViSlam past VI init's refinement window: the laps with the IMU,
+# 30 s at 10 fps, VI init near 4 s, the window's end near 16 s
+VI_LAPS_FRAMES, VI_LAPS_DT = 300, 0.1
 # visual-inertial: tests/test_e2e_vi.py's configuration and contract
 VI_FRAMES, VI_DT, VI_POST_INIT_T = 60, 0.1, 4.5
 VI_CONFIG = dict(n_features=800, vi_init_min_time=2.5, vi_init_min_kfs=8, kf_max_interval=5, imu_capacity=256)
@@ -1033,7 +1054,7 @@ def _vi_phase(cam, dev, tag: str) -> int:
     capacity 256) and its share of the core, the steady VI frame, VI init,
     `vi_ba` and `vi_ba_gw` per LM iteration at the window the run used, and
     the VI mapping job. Last, VI_OWN_SEEDS runs with the port's own draws
-    (its torch.Generator seeded 0-11): the contract's draw-independent part
+    (its torch.Generator seeded 0-5): the contract's draw-independent part
     is asserted (VI ready, final OK or IMU_ONLY, > 60 % of frames OK,
     gravity cos > 0.996), the metric ATE and scale are reported beside the
     reference's seeds. Returns the measured run's K1 launches."""
@@ -1343,6 +1364,271 @@ def _vi_phase(cam, dev, tag: str) -> int:
           f"seeds (golden): " + "; ".join(f"{n} {f_} {m_:.4f} {p_:.4f}/{q_:.4f} {r_:.4f}" for n, f_, m_, p_, q_, r_
                                           in ref_vals)
           + f"; the full contract holds in {sum(contract(*r[2:]) for r in ref_vals)} of {len(ref_vals)}")
+    return launches, traj
+
+
+def _feed_vi(cam, seq, imu, slam, label, launches, draws=None, drained=False, paced=False):
+    """Every frame of `seq` with its IMU samples through `slam` (a
+    MonoViSlam), with the K1 counters set to 0 just before; `draws`, the
+    two-view hypotheses to replay (None: the port's own draw); `drained`,
+    wait_mapping_idle after each frame; `paced`, each frame handed over at
+    its timestamp (the camera's rate). Puts the run's K1 launches in
+    `launches[label]` and checks them against the frames. Per frame (state,
+    host ms, kind, after VI init's refinement window, features tracked, a
+    keyframe made)."""
+    import numpy as np
+
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.slam.tracking_loop import make_pipeline_track_core, make_vi_pipeline_core
+
+    prev, rows = -np.inf, []
+    cores = [make_pipeline_track_core(cam, slam.extractor)] + list(
+        make_vi_pipeline_core(cam, slam.extractor, slam.ext, slam.imu_noise).graphs.values())
+    for c in cores:
+        c.reset_counts()
+    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+    t_start = time.perf_counter()
+    with (_two_view_replay(draws) if draws is not None else contextlib.nullcontext()) as log:
+        for image, ts in zip(seq.images, seq.timestamps):
+            sel = (imu.t > prev) & (imu.t <= ts)
+            prev = ts
+            samples = [(float(t), g, a) for t, g, a in zip(imu.t[sel], imu.gyro[sel], imu.acc[sel])]
+            if paced:
+                time.sleep(max(0.0, t_start + float(ts) - time.perf_counter()))
+            vi, rebases, kfs = slam.vi_ready, slam.rebases, slam.map._next_kf
+            ahead = vi and ts - slam.init_time >= slam.init_refine_window
+            busy = slam._mapping_queue.unfinished_tasks > 0
+            t0 = time.perf_counter()
+            info = slam.process_frame_vi(image, float(ts), samples)
+            ms = (time.perf_counter() - t0) * 1e3
+            if drained:
+                slam.wait_mapping_idle()
+            kind = ("before VI init" if not vi else "re-basing" if slam.rebases > rebases
+                    else "keyframe" if slam.map._next_kf > kfs else "beside a job" if busy else "worker idle")
+            rows.append((info["state"], ms, kind, ahead, info["n_tracked"], slam.map._next_kf > kfs))
+    _check(draws is None or (bool(log) and all(x is True for x in log if x != "own draw")),
+           f"{label}: the replayed two-view draws met other matches: {log}")
+    n = sum(c.launches()["CELL_LAUNCHES"] for c in cores) + fast_cuda.CELL_LAUNCHES
+    launches[label] = n
+    _check(seq.images[0].device.type != "cuda" or n == len(seq.images),
+           f"{label}: K1 launches {n} for {len(seq.images)} frames")
+    return rows
+
+
+def _vi_laps(cam, dev):
+    """The laps (two circuits of the closed room) rendered on `dev` and
+    their clean 200 Hz IMU: (sequence, imu)."""
+    from viorb_tpu_torch.io import synthetic
+
+    return (synthetic.make_sequence(VI_LAPS_FRAMES, cam=cam, dt=VI_LAPS_DT, kind="laps", device=dev),
+            synthetic.make_imu(VI_LAPS_FRAMES, VI_LAPS_DT, hz=200.0, kind="laps"))
+
+
+def _vi_laps_run(cam, seq, imu, tag: str, launches: dict, paced: bool = True, async_mapping: bool = True,
+                 seed: int = 0) -> dict:
+    """MonoViSlam at VI_CONFIG (async unless told) over the laps with the
+    IMU, the port's own two-view draw from `seed`, fed at the camera's 10
+    fps (`paced`) or as fast as the tracker takes the frames; then
+    wait_mapping_idle and one last drain. The run is long enough that the async tracker passes VI
+    init's refinement window and runs beside the worker, as the reference's
+    does. Prints and returns the outcome (VI ready, frames OK, gravity cos,
+    metric and Sim3 ATE) and the concurrent regime: frames past the window,
+    those begun beside a running job and their host ms, re-bases, BAs
+    skipped, keyframe decisions under the 1.5 s gap, keyframes carried
+    through a write-back, frames tracked across one."""
+    import numpy as np
+
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+
+    slam = MonoViSlam(cam, device=seq.images[0].device, async_mapping=async_mapping, seed=seed, **VI_CONFIG)
+    mode = ("async" if async_mapping else "lock-step") + (", camera rate" if paced else ", un-paced") + f", seed {seed}"
+    label = f"MonoViSlam laps ({mode})"
+    t0 = time.perf_counter()
+    try:
+        rows = _feed_vi(cam, seq, imu, slam, label, launches, paced=paced)
+        slam.wait_mapping_idle()
+        if async_mapping:
+            slam._drain_tracker_rebase()
+        wall = time.perf_counter() - t0
+        traj = slam.trajectory_tum()
+    finally:
+        slam.shutdown()
+    _check_main_thread_only(label)
+    g = np.asarray(slam.gravity if slam.gravity is not None else np.zeros(3), np.float64)
+    cos = float(g @ synthetic.GRAVITY_W / max(np.linalg.norm(g) * np.linalg.norm(synthetic.GRAVITY_W), 1e-12))
+    ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+    sim3 = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    ahead = [r for r in rows if r[3]]
+    beside = [r[1] for r in ahead if r[2] == "beside a job"]
+    out = dict(vi_ready=slam.vi_ready, ok=sum(r[0] == "OK" for r in rows), final=rows[-1][0], cos=cos, ate=ate,
+               sim3=sim3, ahead=len(ahead), beside=len(beside), rebases=slam.rebases, skipped=slam.ba_skipped,
+               saturated=slam.saturated_kf_decisions, carried=slam.kfs_carried,
+               across=slam.frames_across_writeback)
+    kinds = {}
+    for r in ahead:
+        kinds.setdefault(r[2], []).append(r[1])
+    print(f"{tag} {label}: {VI_LAPS_FRAMES} frames at dt={VI_LAPS_DT}, {VI_CONFIG}, the port's own draw: VI ready "
+          f"{slam.vi_ready} (at frame {next((i for i, r in enumerate(rows) if r[2] != 'before VI init'), -1)}), "
+          f"{out['ok']} frames OK, final {out['final']}, gravity cos {cos:.6f}, metric ATE {ate:.4f} m, Sim3 ATE "
+          f"{sim3:.4f} m; {len(ahead)} frames past the refinement window (from frame "
+          f"{next((i for i, r in enumerate(rows) if r[3]), -1)}), {len(beside)} of them begun beside a running job; "
+          f"re-bases {slam.rebases}, BAs skipped {slam.ba_skipped}, keyframe decisions under the 1.5 s gap "
+          f"{slam.saturated_kf_decisions}, keyframes carried through a write-back {slam.kfs_carried}, frames tracked "
+          f"across a write-back {slam.frames_across_writeback}; {len(slam.job_times)} jobs, {wall:.2f} s (host "
+          f"clock); states {''.join(r[0][0] for r in rows)}")
+    print(f"{tag} {label}, past the window, the tracker's frames by kind (host clock): "
+          + ("; ".join(f"{k} {len(v)} frames, median {np.median(v):.2f} ms, max {max(v):.2f} ms"
+                       for k, v in kinds.items()) or "none")
+          + f"; the VI BAs (kind, K, ms): " + ", ".join(f"{k} {n} {ms:.1f}" for k, n, ms in slam.vi_ba_times)
+          + f"; {_ba_split(slam, label, local_kinds=('local', 'vi_local'))}")
+    out["rows"] = rows
+    return out
+
+
+def _async_vi_phase(cam, dev, tag: str, lock_traj) -> dict:
+    """Async monocular-inertial SLAM (the reference's rebase epoch: the worker
+    bumps an epoch, the tracker re-bases once at its next frame) and the spin
+    stress case, on the card, after phase 8:
+      1. MonoViSlam(async_mapping=True) at tests/test_async_vi.py's
+         configuration (phase 8's: its 60-frame arc, seed 0, 800 features, VI
+         init after 2.5 s and 8 keyframes, a keyframe at least every 5
+         frames) fed un-paced, as that test feeds it, drawing the two-view
+         hypotheses of the reference's seed-0 run as phase 8 does; then
+         wait_mapping_idle and one last drain, as the test does: its
+         contract (VI ready, > 60 % of frames OK, gravity cos > 0.99, metric
+         ATE < 0.12 m). Printed: the tracker's frame times by kind (before
+         VI init, re-basing, keyframe, beside a running job, worker idle;
+         host clock), the worker's VI job phases and every VI BA (the eager
+         global ones among them), the re-bases, the BAs skipped;
+      2. the same run with wait_mapping_idle() after every frame: its
+         per-frame positions within 0.01 m RMS of phase 8's lock-step run
+         on the same draw (`lock_traj`);
+      3. lock-step MonoViSlam on kind="spin", as
+         tests/test_stress.py::test_vi_fast_rotation_imu_bridge: 100 frames,
+         the biased, noisy 200 Hz IMU, the port's own draw (seed 0), and the
+         test's assertions (VI ready; IMU_ONLY or LOST among frames 38-61;
+         >= 12 of the last 15 frames OK; >= 10 frames after 7 s, their
+         metric ATE < 0.6 m);
+      4. MonoViSlam over the 300-frame laps with the IMU at the camera's
+         rate (`_vi_laps_run`), lock-step, then async: VI init near 3 s,
+         the refinement window over near 15 s, then the async tracker runs
+         beside its worker as the reference's does. Checked: both VI-ready
+         with gravity cos > 0.99; the async run past the window began frames
+         beside a running job, carried keyframes made during a VI BA through
+         its write-back and tracked frames across a write-back. Reported, not
+         enforced: frames OK, final state, metric and Sim3 ATE beside
+         lock-step's, BAs skipped, keyframe decisions under the 1.5 s gap.
+    Each run: K1 launches = frames, every local BA a graph replay, no
+    kernel build, library load or graph capture off the main thread.
+    Returns {path: K1 launches}."""
+    import os
+
+    import numpy as np
+
+    from viorb_tpu_torch.eval.ate import associate, ate_rmse
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_vi_golden.npz")) as z:
+        name = VI_GOLDENS[0]
+        draws = [tuple(z[f"{name}_two_view{i}_{k}"] for k in ("x1", "valid", "idx_h", "idx_f"))
+                 for i in range(int(z[f"{name}_two_view_calls"]))]
+    launches = {}
+
+    def async_run(drained):
+        slam = MonoViSlam(cam, device=dev, async_mapping=True, **VI_CONFIG)
+        label = f"MonoViSlam async{', drained' if drained else ''}"
+        t0 = time.perf_counter()
+        try:
+            rows = _feed_vi(cam, seq, imu, slam, label, launches, draws=draws, drained=drained)
+            slam.wait_mapping_idle()
+            slam._drain_tracker_rebase()  # the asserted state reflects the last BA, as the test's
+            wall = time.perf_counter() - t0
+            traj = slam.trajectory_tum()
+        finally:
+            slam.shutdown()
+        _check_main_thread_only(label)
+        split = _ba_split(slam, label, local_kinds=("local", "vi_local"))
+        g = np.asarray(slam.gravity, np.float64)
+        cos = float(g @ synthetic.GRAVITY_W / (np.linalg.norm(g) * np.linalg.norm(synthetic.GRAVITY_W)))
+        ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+        n_ok = sum(r[0] == "OK" for r in rows)
+        print(f"{tag} {label} at tests/test_async_vi.py's configuration ({VI_CONFIG}), the reference's seed-0 "
+              f"two-view draw: VI ready {slam.vi_ready} (at frame "
+              f"{next((i for i, r in enumerate(rows) if r[2] != 'before VI init'), -1)}), {n_ok} of {VI_FRAMES} "
+              f"frames OK, final {rows[-1][0]}, gravity cos {cos:.6f}, metric ATE {ate:.4f} m; re-bases "
+              f"{slam.rebases}, BAs skipped {slam.ba_skipped}, {len(slam.job_times)} jobs, {wall:.2f} s "
+              f"({VI_FRAMES / wall:.1f} fps, host clock); {split}")
+        return slam, rows, traj, dict(ok=n_ok, cos=cos, ate=ate)
+
+    seq = synthetic.make_sequence(VI_FRAMES, cam=cam, dt=VI_DT, device=dev)
+    imu = synthetic.make_imu(VI_FRAMES, VI_DT, hz=200.0)
+    slam, rows, _traj, out = async_run(drained=False)
+    _check(slam.vi_ready and out["ok"] > 0.6 * VI_FRAMES and out["cos"] > 0.99 and out["ate"] < 0.12,
+           f"async MonoViSlam misses tests/test_async_vi.py's contract: {out}")
+    kinds = {}
+    for _state, ms, kind, *_ in rows[1:]:
+        kinds.setdefault(kind, []).append(ms)
+    print(f"{tag} async MonoViSlam, the tracker's frames by kind (host clock, frame 0 with the thread start "
+          f"left out): " + "; ".join(f"{k} {len(v)} frames, median {np.median(v):.2f} ms, max {max(v):.2f} ms"
+                                     for k, v in kinds.items()))
+    jobs = slam.job_times
+    parts = {k: float(np.median([j[k] for j in jobs])) for k in jobs[0]}
+    print(f"{tag} async MonoViSlam, the worker: {len(jobs)} jobs, median phases "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + " ms, the longest "
+          + ", ".join(f"{k} {v:.1f}" for k, v in max(jobs, key=lambda j: j["total"]).items())
+          + " ms; the VI BAs in order (kind, K, ms): " + ", ".join(f"{k} {n} {ms:.1f}" for k, n, ms in slam.vi_ba_times))
+
+    slam, _rows, traj, out = async_run(drained=True)
+    ia, ib = associate(traj[:, 0], lock_traj[:, 0])
+    rms = float(np.sqrt(((traj[ia, 1:4] - lock_traj[ib, 1:4]) ** 2).sum(1).mean()))
+    print(f"{tag} async MonoViSlam drained after every frame vs phase 8's lock-step run on the same draw: "
+          f"{len(ia)} frames in both, positions {rms:.6f} m RMS apart (max "
+          f"{np.linalg.norm(traj[ia, 1:4] - lock_traj[ib, 1:4], axis=1).max():.6f} m)")
+    _check(slam.vi_ready and len(ia) >= len(lock_traj) - 1 and rms <= 0.01,
+           f"drained async MonoViSlam departs from lock-step: {rms:.6f} m RMS over {len(ia)} frames")
+
+    # the spin stress case: tests/test_stress.py::test_vi_fast_rotation_imu_bridge
+    spin = synthetic.make_sequence(SPIN_FRAMES, cam=cam, dt=0.1, kind="spin", device=dev)
+    spin_imu = synthetic.make_imu(SPIN_FRAMES, 0.1, hz=200.0, kind="spin", noise_g=0.002, noise_a=0.03,
+                                  bias_g=np.array([0.002, -0.001, 0.0015], np.float32),
+                                  bias_a=np.array([0.03, -0.02, 0.01], np.float32))
+    sp = MonoViSlam(cam, device=dev, n_features=800, kf_max_interval=5, vi_init_min_time=2.5, vi_init_min_kfs=8)
+    t0 = time.perf_counter()
+    sp_rows = _feed_vi(cam, spin, spin_imu, sp, "MonoViSlam spin (lock-step)", launches)
+    wall = time.perf_counter() - t0
+    states = [r[0] for r in sp_rows]
+    traj = sp.trajectory_tum()
+    sel = traj[:, 0] >= 7.0
+    m = ate_rmse(traj[sel, 0], traj[sel, 1:4], spin.timestamps, spin.c_w, with_scale=False) if sel.sum() else np.inf
+    print(f"{tag} MonoViSlam lock-step on the spin sequence (tests/test_stress.py's, {SPIN_FRAMES} frames, a "
+          f"~140 deg/s yaw excursion at 4-6 s, the biased noisy IMU, the port's own draw): states "
+          f"{''.join(s[0] for s in states)}; VI ready {sp.vi_ready}; frames 38-61 "
+          f"{''.join(s[0] for s in states[38:62])}; last 15: {states[-15:].count('OK')} OK; {int(sel.sum())} "
+          f"frames after 7 s, their metric ATE {m:.4f} m; {wall:.2f} s; {_ba_split(sp, 'spin', ('local', 'vi_local'))}")
+    _check(sp.vi_ready and any(s in ("IMU_ONLY", "LOST") for s in states[38:62]) and states[-15:].count("OK") >= 12
+           and sel.sum() >= 10 and m < 0.6, "MonoViSlam misses tests/test_stress.py's spin contract")
+    _check_main_thread_only("the spin run")
+
+    # past VI init's refinement window: the laps with the IMU at the camera's
+    # rate, lock-step, then async, where the tracker runs beside the worker
+    laps, laps_imu = _vi_laps(cam, dev)
+    lock = _vi_laps_run(cam, laps, laps_imu, tag, launches, async_mapping=False)
+    run = _vi_laps_run(cam, laps, laps_imu, tag, launches)
+    print(f"{tag} async MonoViSlam past the refinement window, on the laps at the camera's rate (reported, not "
+          f"enforced): {run['ok']} of {VI_LAPS_FRAMES} frames OK (lock-step {lock['ok']}), final {run['final']} "
+          f"(lock-step {lock['final']}), metric ATE {run['ate']:.4f} m (lock-step {lock['ate']:.4f}), Sim3 ATE "
+          f"{run['sim3']:.4f} m (lock-step {lock['sim3']:.4f}); BAs skipped {run['skipped']}, keyframe decisions "
+          f"under the 1.5 s gap {run['saturated']}")
+    _check(lock["vi_ready"] and run["vi_ready"] and min(lock["cos"], run["cos"]) > 0.99,
+           f"MonoViSlam on the laps: VI init and gravity (cos > 0.99): lock-step {lock['cos']}, async {run['cos']}")
+    # the regime the run exists for: frames past the window begun beside a
+    # running job, keyframes made during a VI BA's solve carried by its
+    # write-back, frames tracked across a write-back
+    _check(run["beside"] >= 1 and run["carried"] >= 1 and run["across"] >= 1,
+           f"async MonoViSlam on the laps never ran beside its worker past the refinement window: {run}")
     return launches
 
 
@@ -1604,6 +1890,18 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
                          (time.perf_counter() - t) * 1e3, len(slam.job_times) > jobs))
         return rows
 
+    def gba_threads(slam):
+        """The names of the threads each post-loop GBA of `slam` runs on,
+        with whether the VI flavour ran, filled as they run."""
+        ran, gba = [], slam.loop_closer.gba_fn
+
+        def recorded(anchor, scale_by_kf=None):
+            ran.append((threading.current_thread().name, getattr(slam, "vi_ready", False)))
+            return gba(anchor, scale_by_kf)
+
+        slam.loop_closer.gba_fn = recorded
+        return ran
+
     def mono_run(close, times=None):
         slam = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=close, **LOOP_CONFIG)
         with _two_view_replay(draws["mono"]) as log:
@@ -1770,8 +2068,9 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
            and len(traj) >= 0.85 * LAPS_FRAMES and s_laps < 0.15 and n_pts > 1000,
            "tests/test_stress.py's laps contract")
 
-    # ---- async MonoSlam with loop closing: the GBA on its own thread --------
+    # ---- async MonoSlam with loop closing: the GBA in the loop job ------------
     asy = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, async_mapping=True, **LOOP_CONFIG)
+    a_gba = gba_threads(asy)
     try:
         asy_rows = counted("MonoSlam async + loop closing (camera rate)",
                            lambda: drive(asy, seq, range(LOOP_FRAMES), paced=True), pipe_cores(asy))
@@ -1781,21 +2080,20 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
         asy.shutdown()
     a_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
     # the tracker thread's longest frame beside the loop job on the worker:
-    # the job holds the map lock from the BoW to the end of the closure, as
-    # the reference's does, so the tracker waits for the correction
+    # the job holds the map lock from the BoW to the end of the closure, the
+    # post-loop GBA included, so the tracker waits for the correction
     a_loop_ms = max((j["total"] for j in asy.job_times if "loop" in j), default=float("nan"))
     a_frame_ms = max(r[4] for r in asy_rows[5:])
     a_closed = next((i for i, r in enumerate(asy_rows) if r[3] >= 1), -1)
     print(f"{tag} MonoSlam async with loop closing, fed at the camera's 10 fps: {asy.loop_closer.loops_closed} "
-          f"loop(s) (the tracker saw it closed at frame {a_closed}), post-loop GBA epochs begun {asy._loop_epoch}, "
-          f"aborted by a newer loop {asy.gba_aborted}, BA write-backs dropped as stale {asy.stale_writebacks}; final "
-          f"{asy.state}, Sim3 ATE {a_ate:.4f} m; GBA threads joined, none left: "
-          f"{not asy._gba_threads and asy._gba_error is None}; the loop job {a_loop_ms:.1f} ms on the worker, the "
+          f"loop(s) (the tracker saw it closed at frame {a_closed}), post-loop GBAs on threads {a_gba}; final "
+          f"{asy.state}, Sim3 ATE {a_ate:.4f} m; the loop job {a_loop_ms:.1f} ms on the worker, the "
           f"tracker's longest frame {a_frame_ms:.1f} ms (host clock), its frames "
           f"{a_closed - 3}-{a_closed + 3}: {', '.join(f'{r[4]:.1f}' for r in asy_rows[max(a_closed - 3, 0):a_closed + 4])} ms")
-    _check(asy.loop_closer.loops_closed >= 1 and asy._loop_epoch >= 1 and asy.state == "OK"
-           and not asy._gba_threads and asy._gba_error is None and asy_rows[-1][0] == "OK",
-           "async MonoSlam with loop closing: the loop must close, its GBA thread join cleanly, the run end OK")
+    _check(asy.loop_closer.loops_closed >= 1 and asy.state == "OK" and asy_rows[-1][0] == "OK"
+           and a_gba and all(t == "viorb-mapping" for t, _vi in a_gba),
+           "async MonoSlam with loop closing: the loop must close, its post-loop GBA run in the loop job on the "
+           "mapping worker, the run end OK")
     # the threaded envelope of tests/test_streaming.py around the lock-step loop run
     _check(a_ate <= max(5.0 * ate, 0.20),
            f"async MonoSlam with loop closing: Sim3 ATE {a_ate:.4f} m against the threaded envelope max(5 x "
@@ -1804,9 +2102,50 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
           f"{asy.ba_skipped}; the loop job's phases " + ", ".join(
               f"{k} {v:.1f}" for k, v in next((j for j in asy.job_times if "loop" in j), {}).items()) + " ms")
     _check_main_thread_only("async MonoSlam with loop closing")
+
+    # ---- async MonoViSlam with loop closing: the VI post-loop GBA on the worker
+    avi = MonoViSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, async_mapping=True,
+                     **LOOP_VI_CONFIG)
+    gba_ran = gba_threads(avi)
+    try:
+        with _two_view_replay(draws["vi"]):
+            avi_rows = counted("MonoViSlam async + loop closing (camera rate)",
+                               lambda: drive(avi, seq, range(LOOP_FRAMES), vi=True, paced=True), pipe_cores(avi))
+        avi.wait_mapping_idle()
+        avi._drain_tracker_rebase()
+        traj = avi.trajectory_tum()
+    finally:
+        avi.shutdown()
+    v_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    v_loop_ms = max((j["total"] for j in avi.job_times if "loop" in j), default=float("nan"))
+    v_closed = next((i for i, r in enumerate(avi_rows) if r[3] >= 1), -1)
+    print(f"{tag} MonoViSlam async with loop closing, fed at the camera's 10 fps ({LOOP_VI_CONFIG}), the "
+          f"reference's two-view draw: {avi.loop_closer.loops_closed} loop(s) (the tracker saw it closed at frame "
+          f"{v_closed}), post-loop GBAs (thread, VI flavour) {gba_ran}; "
+          f"final {avi.state}, Sim3 ATE {v_ate:.4f} m (envelope max(5 x {s_:.4f}, 0.20) m, the lock-step VI loop "
+          f"run's); re-bases {avi.rebases}, BAs skipped {avi.ba_skipped}; the loop job {v_loop_ms:.1f} ms on the "
+          f"worker, the tracker's longest frame {max(r[4] for r in avi_rows[5:]):.1f} ms (host clock), its frames "
+          f"{v_closed - 3}-{v_closed + 3}: "
+          + ", ".join(f"{r[4]:.1f}" for r in avi_rows[max(v_closed - 3, 0):v_closed + 4]) + " ms; the loop job's "
+          "phases " + ", ".join(f"{k} {v:.1f}" for k, v in next((j for j in avi.job_times if "loop" in j), {}).items())
+          + f" ms; the VI BAs (kind, K, ms) " + ", ".join(f"{k} {n} {ms:.1f}" for k, n, ms in avi.vi_ba_times)
+          + f"; {_ba_split(avi, 'async VI loop run', ('local', 'vi_local'))}")
+    _check(avi.vi_ready and avi.loop_closer.loops_closed >= 1 and avi.state == "OK" and avi_rows[-1][0] == "OK"
+           and gba_ran and all(t == "viorb-mapping" and vi for t, vi in gba_ran),
+           "async MonoViSlam with loop closing: the loop must close, its VI post-loop GBA run in the loop job on "
+           "the mapping worker, the run end OK")
+    _check(v_ate <= max(5.0 * s_, 0.20),
+           f"async MonoViSlam with loop closing: Sim3 ATE {v_ate:.4f} m against the threaded envelope max(5 x "
+           f"{s_:.4f}, 0.20) m of the lock-step VI loop run")
+    # one K8 launch a job whose keyframe outlived the job's culling
+    _check(not on_card or 0 < k8_paths["MonoViSlam async + loop closing (camera rate)"] <= len(avi.job_times),
+           f"async VI loop run: K8 launches {k8_paths['MonoViSlam async + loop closing (camera rate)']} for "
+           f"{len(avi.job_times)} mapping jobs")
+    _check_main_thread_only("async MonoViSlam with loop closing")
     # streaming runs the same mapping job on the same worker: loop closing
     # and the threaded GBA ride along
     stm = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, streaming=True, **LOOP_CONFIG)
+    s_gba = gba_threads(stm)
     try:
         stm_rows = counted("MonoSlam streaming + loop closing (camera rate)",
                            lambda: drive(stm, seq, range(LOOP_FRAMES), paced=True), pipe_cores(stm))
@@ -1816,15 +2155,14 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
         stm.shutdown()
     s_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
     print(f"{tag} MonoSlam streaming with loop closing, fed at the camera's 10 fps: {stm.loop_closer.loops_closed} "
-          f"loop(s), GBA "
-          f"epochs {stm._loop_epoch}, aborted {stm.gba_aborted}, stale write-backs {stm.stale_writebacks}; final "
+          f"loop(s), post-loop GBAs on threads {s_gba}; final "
           f"{stm.state}, {len(traj)} trajectory frames, Sim3 ATE {s_ate:.4f} m (envelope max(5 x {ate:.4f}, 0.20) "
-          f"m); GBA threads joined: {not stm._gba_threads and stm._gba_error is None}; the longest dispatch "
+          f"m); the longest dispatch "
           f"{max(r[4] for r in stm_rows[5:]):.1f} ms (host clock; the backlog gate holds the dispatcher while "
           f"{stm.mapping_backlog_limit} jobs are unfinished)")
-    _check(not stm._gba_threads and stm._gba_error is None and len(traj) >= 0.8 * LOOP_FRAMES and stm.state == "OK",
-           "streaming MonoSlam with loop closing: its threads must join cleanly, it must keep 80 % of the frames "
-           "and end OK")
+    _check(all(t == "viorb-mapping" for t, _vi in s_gba) and len(traj) >= 0.8 * LOOP_FRAMES and stm.state == "OK",
+           "streaming MonoSlam with loop closing: its post-loop GBA must run in the loop job on the mapping worker, "
+           "it must keep 80 % of the frames and end OK")
     _check(s_ate <= max(5.0 * ate, 0.20),
            f"streaming MonoSlam with loop closing: Sim3 ATE {s_ate:.4f} m against tests/test_streaming.py's envelope "
            f"max(5 x {ate:.4f}, 0.20) m of the lock-step loop run")
@@ -1921,6 +2259,7 @@ def main() -> int:
     from viorb_tpu_torch.solvers.two_view import sample_minimal_sets, two_view_from_samples, two_view_init
 
     # ---- 1. report -------------------------------------------------------
+    marks = [("start", time.perf_counter())]  # (phases ended, host clock) for the closing time line
     card = _card()
     tag = f"[{card}]"
     dev = default_device()
@@ -2340,19 +2679,26 @@ def main() -> int:
     graph_ba = _graphed_ba_check(cam, dev, tag)
 
     # ---- 6. lock-step SLAM: MonoSlam at its defaults ---------------------
+    marks.append(("1-5", time.perf_counter()))
     slam_launches = _slam_phase(cam, dev, tag)
+    marks.append(("6", time.perf_counter()))
 
     # ---- 7. async mapping and streaming MonoSlam --------------------------
     threaded_launches, lock_ate = _threaded_slam_phase(cam, dev, tag)
     switch_launches = _dtype_switch_phase(cam, dev, tag, lock_ate)
     threaded_launches.update({f"MonoSlam {m}, dtype switch": n for m, n in switch_launches.items()})
     _async_ate_phase(cam, dev, tag)
+    marks.append(("7", time.perf_counter()))
 
     # ---- 8. lock-step visual-inertial SLAM: MonoViSlam --------------------
-    threaded_launches["MonoViSlam"] = _vi_phase(cam, dev, tag)
+    threaded_launches["MonoViSlam"], vi_traj = _vi_phase(cam, dev, tag)
+    marks.append(("8 lock-step", time.perf_counter()))
+    threaded_launches.update(_async_vi_phase(cam, dev, tag, vi_traj))
+    marks.append(("8 async and spin", time.perf_counter()))
 
     # ---- 9. place recognition and loop closing ---------------------------
     loop_k1, loop_k8, k8 = _loop_phase(cam, dev, tag)
+    marks.append(("9", time.perf_counter()))
     threaded_launches.update(loop_k1)
     print(f"K1 launches by path: {json.dumps({'tracking cores': cell_launches, 'MonoSlam': slam_launches, **threaded_launches})}")
     print(f"K8 launches by path: {json.dumps(loop_k8)}")
@@ -2517,6 +2863,10 @@ def main() -> int:
     print(f"{tag} two_view_init, {tv_x1.shape[0]} match slots, 256 hypotheses: {init_ms:.3f} ms a call")
 
     _check_main_thread_only("the whole run")
+    marks.append(("10", time.perf_counter()))
+    print(f"{tag} chip_smoke.py's host seconds by phase: " + ", ".join(
+        f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
+        + f"; {marks[-1][1] - marks[0][1]:.1f} s in all")
     print(json.dumps({"kernels": [
         {
             "name": "fast_score_map (K1, FAST-9 arc strength, one image a launch)",

@@ -3,15 +3,19 @@ chip_smoke.py phase 9's streaming run with loop closing (the 100-frame
 noisy circuit fed at the camera's 10 fps), warmed up first by a lock-step
 loop run, then repeated, with a trace of each run.
 
-    python3 probes/stream_loop_trace.py [runs] [--async]
+    python3 probes/stream_loop_trace.py [runs] [--async] [--both]
 
-Per run: the Sim3 ATE; per frame its state, inliers, frames in flight and
-its position error after the run's own Sim3 alignment (cm); the events
-with the frame being dispatched when they happened (loop correction begin
-and end, post-loop GBA begin, applied or dropped, local BA write-backs
-applied or dropped, stream failures, carry re-anchors over 1 cm, a map
-publish while a frame was tracked synchronously); each
-keyframe's position error at the end (cm)."""
+(`--both`: the runs in async, then as many streaming.) Per run: the Sim3
+ATE; per frame its state, inliers, frames in flight, its position error
+after the run's own Sim3 alignment (cm), the motion model's prediction
+error (cm, async), the shift a re-base gave the last frame (cm, async),
+the jobs unfinished when it entered and whether it became a keyframe; the
+events with the frame being dispatched when they happened (loop
+correction begin and end, post-loop GBA begin and end, local BA
+write-backs with the frames the tracker was ahead of the solve's snapshot
+and the largest keyframe shift, BAs skipped, stream failures, carry
+re-anchors over 1 cm, a map publish while a frame was tracked
+synchronously); each keyframe's position error at the end (cm)."""
 import sys, time, numpy as np
 import torch
 sys.path.insert(0, ".")
@@ -25,6 +29,7 @@ from viorb_tpu_torch.slam.mono import MonoSlam  # noqa: E402
 
 RUNS = int(next((a for a in sys.argv[1:] if a.isdigit()), 4))
 ASYNC = "--async" in sys.argv
+BOTH = "--both" in sys.argv
 tag = cs._card()
 print(tag, flush=True)
 dev = torch.device("cuda")
@@ -42,6 +47,7 @@ vocab = train_vocabulary(np.concatenate(descs), k=8, depth=3)
 CFG = dict(n_features=800, kf_max_interval=5)
 cur = [0]
 events = []
+frame_log = {}  # frame -> dict of what the instrumentation saw
 
 
 def ev(what):
@@ -61,7 +67,7 @@ def errors(slam):
             c = -kf.r_cw.T @ kf.t_cw
             fi = int(np.argmin(np.abs(seq.timestamps - kf.timestamp)))
             kf_err.append((k, fi, float(np.linalg.norm(seq.c_w[fi] - (s * (R @ c) + t)))))
-    return float(np.sqrt((err ** 2).mean())), per_frame, kf_err
+    return float(np.sqrt((err ** 2).mean())), per_frame, kf_err, (s, R, t)
 
 
 def instrument(slam):
@@ -73,21 +79,68 @@ def instrument(slam):
         ev("correct end")
         return out
     slam.loop_closer.correct = correct
-    orig_gba = slam._post_loop_gba_impl
+    orig_gba = slam.loop_closer.gba_fn
 
-    def gba(anchor, scale_by_kf, epoch):
-        ev(f"GBA begin (epoch {epoch})")
-        out = orig_gba(anchor, scale_by_kf, epoch)
-        ev(f"GBA end (epoch now {slam._loop_epoch})")
+    def gba(anchor, scale_by_kf=None):
+        ev("GBA begin")
+        out = orig_gba(anchor, scale_by_kf)
+        ev("GBA end")
         return out
-    slam._post_loop_gba_impl = gba
+    slam.loop_closer.gba_fn = gba
     orig_apply = slam._apply_ba_result
+    orig_local = slam._local_ba
+    solve_frame = {}
+
+    def local_ba(*a, **kw):
+        solve_frame[slam.map._next_kf] = cur[0]
+        return orig_local(*a, **kw)
+    slam._local_ba = local_ba
+
+    def centers():
+        return {k: -kf.r_cw.T @ kf.t_cw for k, kf in slam.map.keyframes.items()}
 
     def apply(*a, **kw):
+        with slam.map_lock:
+            before = centers()
         out = orig_apply(*a, **kw)
-        ev(f"BA write-back {'applied' if out else 'dropped'} ({len(a[0])} kfs)")
+        with slam.map_lock:
+            after = centers()
+        shift = max((float(np.linalg.norm(after[k] - before[k])) for k in before if k in after), default=0.0)
+        carried = [k for k in after if k >= a[8] and k not in a[0]]
+        ev(f"BA write-back ({len(a[0])} kfs, tracker {cur[0] - solve_frame.get(a[8], cur[0])} "
+           f"frames past the snapshot, largest kf shift {shift:.4f}, carried {carried})")
         return out
     slam._apply_ba_result = apply
+    skipped = [slam.ba_skipped]
+    orig_mba = slam._mapping_ba
+
+    def mapping_ba(*a, **kw):
+        out = orig_mba(*a, **kw)
+        if slam.ba_skipped != skipped[0]:
+            ev(f"BA skipped (kf {a[0]})")
+            skipped[0] = slam.ba_skipped
+        return out
+    slam._mapping_ba = mapping_ba
+    orig_rebase = slam._rebase_last_frame
+
+    def rebase():
+        last = slam.last_frame
+        c0 = None if last is None or last.r_cw is None else -last.r_cw.T @ last.t_cw
+        out = orig_rebase()
+        if c0 is not None and last.r_cw is not None:
+            d = float(np.linalg.norm(-last.r_cw.T @ last.t_cw - c0))
+            if d > 0:
+                log = frame_log.setdefault(cur[0], {})
+                log["rebase"] = log.get("rebase", 0.0) + d
+        return out
+    slam._rebase_last_frame = rebase
+    orig_pred = slam._predict_pose
+
+    def predict():
+        r, t = orig_pred()
+        frame_log.setdefault(cur[0], {})["pred"] = (r.copy(), t.copy())
+        return r, t
+    slam._predict_pose = predict
     orig_re = slam._reanchor_carry
 
     def reanchor():
@@ -112,6 +165,7 @@ def instrument(slam):
 
 def run(mode):
     events.clear()
+    frame_log.clear()
     kw = dict(streaming=True) if mode == "streaming" else dict(async_mapping=True) if mode == "async" else {}
     slam = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, **kw, **CFG)
     if mode != "lock-step":
@@ -121,6 +175,8 @@ def run(mode):
         with cs._two_view_replay(draws):
             for i in range(100):
                 cur[0] = i
+                frame_log.setdefault(i, {})["jobs"] = slam._mapping_queue.unfinished_tasks
+                kfs = slam.map._next_kf
                 ts = float(seq.timestamps[i])
                 if mode != "lock-step":
                     time.sleep(max(0.0, t_start + ts - time.perf_counter()))
@@ -129,8 +185,9 @@ def run(mode):
                     ev("stream failed")
                 failed = getattr(slam, "_stream_failed", False)
                 rows.append((info["state"], info["n_tracked"], info.get("queued", 0)))
+                frame_log[i]["kf"] = slam.map._next_kf > kfs
         slam.wait_mapping_idle()
-        ate, per_frame, kf_err = errors(slam)
+        ate, per_frame, kf_err, sim3 = errors(slam)
     finally:
         slam.shutdown()
     print(f"{tag} {mode} loop run: loops {slam.loop_closer.loops_closed}, Sim3 ATE {ate:.4f} m, "
@@ -141,11 +198,24 @@ def run(mode):
     print("  inliers " + " ".join(str(r[1]) for r in rows))
     print("  queued  " + "".join(str(min(r[2], 9)) for r in rows))
     print("  err cm  " + " ".join(f"{i}:{per_frame[i] * 100:.0f}" if i in per_frame else f"{i}:-" for i in range(100)))
+    if mode == "async":
+        s, R, t = sim3
+        pe = []
+        for i in range(100):
+            pr = frame_log.get(i, {}).get("pred")
+            pe.append(f"{i}:-" if pr is None else
+                      f"{i}:{np.linalg.norm(seq.c_w[i] - (s * (R @ (-pr[0].T @ pr[1])) + t)) * 100:.0f}")
+        print("  pred err cm " + " ".join(pe))
+        print("  rebase cm " + " ".join(f"{i}:{frame_log[i]['rebase'] * s * 100:.1f}" for i in range(100)
+                                        if frame_log.get(i, {}).get("rebase")))
+    print("  jobs    " + "".join(str(min(frame_log.get(i, {}).get("jobs", 0), 9)) for i in range(100)))
+    print("  kf      " + "".join("K" if frame_log.get(i, {}).get("kf") else "." for i in range(100)))
     print("  kf err cm " + " ".join(f"{k}@{fi}:{e * 100:.0f}" for k, fi, e in kf_err))
     t0 = events[0][1] if events else 0.0
     print("  events " + "; ".join(f"f{f} +{t - t0:.2f}s {w}" for f, t, w in events), flush=True)
 
 
 run("lock-step")  # warm-up, as chip_smoke runs the lock-step loop pair first
-for _ in range(RUNS):
-    run("async" if ASYNC else "streaming")
+for mode in (["async", "streaming"] if BOTH else ["async" if ASYNC else "streaming"]):
+    for _ in range(RUNS):
+        run(mode)

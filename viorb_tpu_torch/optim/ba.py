@@ -50,13 +50,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
 from viorb_tpu_torch.cuda_graph import GraphedFunction
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.geometry.so3 import exp_so3
 from viorb_tpu_torch.imu.navstate import NavState, select_nav
 from viorb_tpu_torch.imu.preintegration import PreintegratedImu
+from viorb_tpu_torch.optim.forward_ad import jacfwd
 from viorb_tpu_torch.optim.imu_factors import bias_walk_residual, preint_residual, whitener_from_cov
 from viorb_tpu_torch.optim.reprojection import (
     Extrinsics,

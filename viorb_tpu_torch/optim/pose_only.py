@@ -22,12 +22,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import jacfwd
 
 from viorb_tpu_torch.geometry.camera import PinholeCamera, project
 from viorb_tpu_torch.geometry.so3 import exp_so3
 from viorb_tpu_torch.imu.navstate import NavState, select_nav
 from viorb_tpu_torch.imu.preintegration import PreintegratedImu
+from viorb_tpu_torch.optim.forward_ad import jacfwd
 from viorb_tpu_torch.optim.imu_factors import (
     bias_walk_residual,
     preint_residual,

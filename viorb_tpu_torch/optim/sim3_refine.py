@@ -21,6 +21,7 @@ import torch
 
 from viorb_tpu_torch.geometry.camera import PinholeCamera, project
 from viorb_tpu_torch.geometry.so3 import exp_so3
+from viorb_tpu_torch.optim.forward_ad import jacfwd
 from viorb_tpu_torch.optim.robust import huber_weight
 
 TH2 = 9.21  # chi2 gate of a 2-dof edge pair (the reference uses 10)
@@ -81,7 +82,7 @@ def optimize_sim3_reproj(
             return torch.cat([(rf * w).reshape(-1), (ri * w).reshape(-1)])
 
         rv = res_flat(z7)
-        J = torch.func.jacfwd(res_flat)(z7).reshape(-1, 7)  # (4N,7)
+        J = jacfwd(res_flat)(z7).reshape(-1, 7)  # (4N,7)
         H = J.T @ J
         g = -(J.T @ rv)
         H = H + lam * torch.diag(H.diagonal().clamp(min=1e-6))

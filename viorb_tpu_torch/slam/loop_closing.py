@@ -83,9 +83,6 @@ class LoopCloser:
         # observations, without which it relaxes back to the drifted shape
         self.gba_fn = None
         self.fuse_fn = None
-        # begin_fn(), called under the lock as a correction snapshots the map
-        # (the owning pipeline's loop epoch), set by the owner
-        self.begin_fn = None
 
     def _up(self, a, dtype=None) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
@@ -297,8 +294,6 @@ class LoopCloser:
         with `map.version`."""
         dev = self.device
         with self.lock:
-            if self.begin_fn is not None:
-                self.begin_fn()
             ids = sorted(self.map.keyframes.keys())
             slot = {k: i for i, k in enumerate(ids)}
             r = np.stack([self.map.keyframes[i].r_cw for i in ids]).astype(np.float32)

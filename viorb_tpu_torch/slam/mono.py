@@ -15,7 +15,8 @@ ORB-SLAM's Tracking and LocalMapping threads:
     the correction through the newest solved keyframe (the spanning-tree
     pass). While two jobs are unfinished, only a twice-blown interval cap
     may insert a keyframe, and a job skips its BA while a newer keyframe
-    waits (at most twice in a row);
+    waits (at most twice in a row, and never while the map holds no more
+    keyframes than `local_window`);
   * streaming (`streaming=True`, implies async): the caller's thread only
     DISPATCHES the graphed streaming core with a pose carry on the card and
     starts non-blocking copies of the frame's bookkeeping fields into
@@ -55,25 +56,25 @@ With a vocabulary, place recognition runs at the end of every mapping job
 (`slam/loop_closing.py::LoopCloser`: the keyframe's BoW through K8 into the
 database, then, with `enable_loop_closing`, detection, Sim3 verification,
 the essential-graph correction, seam fusion and the post-loop global BA),
-and relocalization takes its candidates from the database. The post-loop
-global BA runs in the job (lock-step) or on a thread of its own with its
-own CUDA stream (async and streaming): mapping and tracking go on, a newer
-loop aborts its write-back (`_loop_epoch`), and keyframes and points made
-while it ran follow their spanning-tree parent's correction.
+and relocalization takes its candidates from the database.
 
 Loop closing holds the map lock from the keyframe's BoW to the end of the
-closure (detection, Sim3 verification, the essential graph, seam fusion),
-as the reference's mapping job does: a tracker thread waits for a
-correction. Not copied from the reference (its faults): the unlocked swap
+closure (detection, Sim3 verification, the essential graph, seam fusion,
+the post-loop global BA), as the reference's mapping job holds it across
+the correction: a tracker thread waits for the closure. The post-loop
+global BA runs in the loop job in every mode; the reference runs it on a
+thread of its own in its threaded modes, which left frames tracked against
+the corrected map before its write-back 0.4-1.5 m off on the card, and let
+a local BA solved on that map undo part of it when written back after it.
+Not copied from the reference (its faults): the unlocked swap
 of the pending BA (`_ba_lock`: a solve is applied exactly once), the
 deferred-descriptor race (the handle is read once, the write-back only
 fills a missing block, both under `map_lock`), a deferred write-back onto
 a point slot culled and reused meanwhile (`MapStore.pt_gen`, compared with
-the solve's snapshot), and `map_lock` held across fusion's uploads and
-dispatch. The threaded post-loop GBA moves a keyframe made during its
-solve once, through its spanning-tree parent; the reference moves it twice
-(through the newest solved keyframe in the BA write-back, then through the
-parent).
+the solve's snapshot), `map_lock` held across fusion's uploads and
+dispatch, the BA skip on a young map (the first local BA after the
+initialization's skipped while keyframes pile up), and the post-loop
+global BA on a thread beside the tracker (above).
 
 The local BAs pad their pose block to the reference's buckets
 (`optim/ba.py::pose_bucket`) and replay one CUDA graph a bucket on the
@@ -243,19 +244,12 @@ class MonoSlam:
         self.enable_loop_closing = enable_loop_closing
         self.loop_closer: Optional[LoopCloser] = None
         self._new_loop_closer()
-        # the post-loop GBA threads (async), each with its CUDA stream; a
-        # loop correction bumps the epoch, which aborts an older GBA's
-        # write-back and drops a BA solved before it
-        self._gba_threads: List[threading.Thread] = []
-        self._gba_error: Optional[BaseException] = None
-        self._loop_epoch = 0  # loop corrections begun when threaded, each with its GBA thread
-        self.gba_aborted = 0  # GBA write-backs aborted by a newer loop
-        self.stale_writebacks = 0  # BA write-backs dropped as solved before a loop correction
 
         # async mapping (the reference's LocalMapping thread)
         self.async_mapping = async_mapping or streaming
         self._ba_skips = 0  # BAs skipped in a row
         self.ba_skipped = 0  # BAs skipped in all
+        self.kfs_carried = 0  # keyframes made during a solve that followed its write-back
         self._mapping_queue: "queue.Queue[Optional[int]]" = queue.Queue()
         # the deferred local-BA write-back: (its arrays, the solve's device
         # tensors, their event); swapped out and applied under _ba_lock, so a
@@ -320,7 +314,6 @@ class MonoSlam:
         self.loop_closer = LoopCloser(self.map, self.vocabulary, cam=self.cam, device=self.device, lock=self.map_lock)
         self.loop_closer.gba_fn = self._post_loop_gba
         self.loop_closer.fuse_fn = self._fuse_points_into_kf
-        self.loop_closer.begin_fn = self._begin_loop_correction
 
     # -- host <-> device ---------------------------------------------------
 
@@ -407,10 +400,7 @@ class MonoSlam:
         map's keyframe and point counts; when streaming, the counts as the
         collector last left them, and `queued`, the frames in flight."""
         if self.async_mapping:
-            if self._worker is None:
-                self._start_threads(image)
-            elif self._frame_key(image) != self._threads_key:
-                self._recapture(image)
+            self._ensure_threads(image)
         if self.streaming:
             return self._process_frame_streaming(image, ts)
         return self._process_frame_once(image, ts)
@@ -478,6 +468,15 @@ class MonoSlam:
         image = torch.as_tensor(image)
         return tuple(image.shape), image.dtype
 
+    def _ensure_threads(self, image):
+        """Threaded modes: start the threads at the first frame, and start
+        them anew (with the graphs captured at the new key) at a frame of
+        another shape or dtype."""
+        if self._worker is None:
+            self._start_threads(image)
+        elif self._frame_key(image) != self._threads_key:
+            self._recapture(image)
+
     def _recapture(self, image):
         """A frame of a new shape or dtype in a threaded run (the reference
         recompiles for it): bring the threads to a quiescent point (the
@@ -497,22 +496,9 @@ class MonoSlam:
         threads (cuda_graph.py)."""
         self._threads_key = self._frame_key(image)
         if self._on_card:
-            img = self._image(image)
-            eye = self._up(np.eye(3, dtype=np.float32))
-            zero = self._up(np.zeros(3, np.float32))
             packed, bits, valid = self._point_payload(np.zeros(0, np.int64))
-            dmap = unpack_local_map(self._up(packed), self._up(bits), self._up(valid))
-            if self._track_core is None:
-                self._track_core = make_pipeline_track_core(self.cam, self.extractor)
-            self._track_core.prepare(img, eye, zero, *dmap)
-            if self.streaming:
-                if self._stream_core is None:
-                    self._stream_core = make_streaming_track_core(self.cam, self.extractor)
-                self._stream_core.prepare(TrackCarry(eye, zero, eye, zero), img, *dmap)
-            # the local BA at both pose buckets a window can take (their
-            # shapes do not depend on the frame: a recapture keeps them)
-            for k in sorted({pose_bucket(4), GRAPHED_MAX_POSES}):
-                self._ba_graph.prepare(*self._placeholder_ba(k))
+            self._capture_before_threads(
+                self._image(image), unpack_local_map(self._up(packed), self._up(bits), self._up(valid)))
             # the worker's stream starts after what this thread queued so far
             # (the level variances, the first frame's uploads)
             self._worker_stream = torch.cuda.Stream(self.device)
@@ -527,6 +513,24 @@ class MonoSlam:
             t.start()
         self._worker = threads[0]
         self._collector = threads[1] if self.streaming else None
+
+    def _capture_before_threads(self, img: torch.Tensor, dmap):
+        """Capture every graph the threads replay, at the frame `img`'s and
+        the padded local map `dmap`'s shapes (`_start_threads`, on the
+        card): the cores this mode tracks with, and the local BA at both
+        pose buckets a window can take (their shapes do not depend on the
+        frame: a recapture keeps them). Subclasses add theirs (VI)."""
+        eye = self._up(np.eye(3, dtype=np.float32))
+        zero = self._up(np.zeros(3, np.float32))
+        if self._track_core is None:
+            self._track_core = make_pipeline_track_core(self.cam, self.extractor)
+        self._track_core.prepare(img, eye, zero, *dmap)
+        if self.streaming:
+            if self._stream_core is None:
+                self._stream_core = make_streaming_track_core(self.cam, self.extractor)
+            self._stream_core.prepare(TrackCarry(eye, zero, eye, zero), img, *dmap)
+        for k in sorted({pose_bucket(4), GRAPHED_MAX_POSES}):
+            self._ba_graph.prepare(*self._placeholder_ba(k))
 
     def _placeholder_ba(self, k: int):
         """A well-posed local-BA problem of k poses at the local BA's shapes
@@ -561,7 +565,6 @@ class MonoSlam:
             self._mapping_queue.put(None)
             self._join(self._worker)
             self._worker = None
-        self._join_gba()
         for _ in range(self._threads_registered):
             cuda_graph.unregister_thread()
         self._threads_registered = 0
@@ -571,17 +574,6 @@ class MonoSlam:
         thread.join(timeout=timeout)
         if thread.is_alive():
             raise RuntimeError(f"{thread.name} did not stop within {timeout:.0f} s")
-
-    def _join_gba(self):
-        """Join the post-loop GBA threads (each declared to cuda_graph until
-        it is joined) and raise what one of them raised."""
-        while self._gba_threads:
-            self._join(self._gba_threads[0], timeout=300.0)
-            self._gba_threads.pop(0)
-            if self._on_card:
-                cuda_graph.unregister_thread()
-        if self._gba_error is not None:
-            raise RuntimeError("post-loop GBA thread died") from self._gba_error
 
     def wait_mapping_idle(self):
         """Block until the stream and the mapping queue drain and the last
@@ -593,7 +585,6 @@ class MonoSlam:
             self._flush_pending_ba()
             if self._worker_error is not None:
                 raise RuntimeError("mapping worker died") from self._worker_error
-            self._join_gba()
 
     def _mapping_worker(self):
         """The worker thread: one mapping job at a time from the queue, every
@@ -1479,9 +1470,14 @@ class MonoSlam:
     def _mapping_ba(self, kf_id: int, window: List[int]):
         """Windowed local BA over `window` (`kf_id`'s) with outside-window
         anchors fixed. Async: skipped while a newer keyframe waits (the
-        reference's BA abort), at most twice in a row, and its write-back
-        deferred. Subclasses switch the flavour (VI)."""
+        reference's BA abort), at most twice in a row, but never while the
+        map is young (no more keyframes than `local_window`: the window is
+        the whole map, the solve is cheap, and a two-view map left
+        unrefined while keyframes pile up degrades until tracking fails;
+        the reference skips there too), and its write-back deferred.
+        Subclasses switch the flavour (VI)."""
         with self.map_lock:
+            young = len(self.map.keyframes) <= self.local_window
             # fixed anchors: KFs observing window points but outside the window
             anchor = set()
             for p in self.map.local_map_points(window):
@@ -1494,7 +1490,7 @@ class MonoSlam:
             # keyframe or the solve is GAUGE-FREE and each run moves the
             # whole world a little
             fixed = [min(window)]
-        if self.async_mapping and not self._mapping_queue.empty() and self._ba_skips < 2:
+        if self.async_mapping and not young and not self._mapping_queue.empty() and self._ba_skips < 2:
             self._ba_skips += 1
             self.ba_skipped += 1
             return
@@ -1656,15 +1652,14 @@ class MonoSlam:
             launches.append((pt_ids, point_for_feat, target))
         return launches, own, nb_pts
 
-    def _local_ba(self, window: List[int], fixed: List[int], max_landmarks: int = 0, abort_check=None,
-                  defer: bool = False, carry_new: bool = True, kind: str = "local"):
+    def _local_ba(self, window: List[int], fixed: List[int], max_landmarks: int = 0, defer: bool = False,
+                  kind: str = "local"):
         """BA over `window` with `fixed` anchors and at most `max_landmarks`
         points (0: `max_ba_landmarks`). The problem is snapshotted under the
         map lock and solved outside it; the solve is written back now, or
-        with `defer` by the next `_flush_pending_ba`, unless `abort_check()`
-        is then true or a loop correction came between (`_loop_epoch`). With
-        `carry_new`, keyframes made after the snapshot ride the solve's
-        correction through the newest solved keyframe. The pose block is
+        with `defer` by the next `_flush_pending_ba`; keyframes made after
+        the snapshot ride the solve's correction through the newest solved
+        keyframe. The pose block is
         padded to `pose_bucket` (fixed identity poses no observation names),
         as the reference pads it; a local BA (`kind` "local") of at most
         GRAPHED_MAX_POSES poses replays its bucket's graph on the card, any
@@ -1695,16 +1690,15 @@ class MonoSlam:
             # through the newest solved keyframe (_apply_ba_result)
             next_kf = self.map._next_kf
             solved = [i for s, i in enumerate(kf_list) if not fixed_mask[s]]
-            ref_id = max(solved, default=-1) if carry_new else -1
+            ref_id = max(solved, default=-1)
             ref_pre = None if ref_id < 0 else (r_cw[kf_list.index(ref_id)].copy(), t_cw[kf_list.index(ref_id)].copy())
-            epoch = self._loop_epoch
         args = (VisionBAState(self._up(r_cw), self._up(t_cw), self._up(points)), self._up(kf_idx, np.int64),
                 self._up(uv), self._up(inv_s2), self._up(valid), self._up(fixed_mask))
         graphed = self._on_card and kind == "local" and k <= GRAPHED_MAX_POSES
         out, valid_out = self._ba_graph(*args) if graphed else self._ba_graph.eager(*args)
         self._count_ba(kind, graphed)
         job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, valid_out),
-               self._record_ready(), next_kf, ref_id, ref_pre, abort_check, epoch)
+               self._record_ready(), next_kf, ref_id, ref_pre)
         if not defer:
             return self._apply_ba_result(*job)
         with self._ba_lock:
@@ -1722,39 +1716,24 @@ class MonoSlam:
                 self._apply_ba_result(*job)
 
     def _apply_ba_result(self, kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, solution, ready, next_kf, ref_id,
-                         ref_pre, abort_check, epoch):
+                         ref_pre):
         """One pull of the solve (after its event, from any thread), then the
         write-back under the map lock: poses of the solved keyframes; the
         keyframes made after the snapshot carried along through the newest
         solved keyframe (the reference's post-GBA spanning-tree pass); the
         points still in their slots; the observations BA marked as
-        outliers removed. Publishes with `map.version`. Nothing is written
-        when `abort_check()` says a newer loop superseded the solve or a
-        loop correction rewrote the map after the snapshot (applying a
-        pre-correction solution would undo it)."""
+        outliers removed. Publishes with `map.version`. (A deferred solve
+        never meets a loop correction: a job with a loop closer writes its
+        own BA back before the closure, under the lock the closure holds.)"""
         r_new, t_new, p_new, valid_new = self._pull(*solution, after=ready)
         with self.map_lock:
-            if abort_check is not None and abort_check():
-                self.gba_aborted += 1
-                return False
-            if epoch != self._loop_epoch:
-                self.stale_writebacks += 1
-                return False
             for s, i in enumerate(kf_list):
                 if not fixed_mask[s] and i in self.map.keyframes:
                     self.map.keyframes[i].r_cw = r_new[s]
                     self.map.keyframes[i].t_cw = t_new[s]
             if ref_pre is not None and ref_id in self.map.keyframes:
-                r_old, t_old = ref_pre
                 rk = self.map.keyframes[ref_id]
-                for i in sorted(self.map.keyframes):
-                    if i < next_kf or i in kf_list:
-                        continue
-                    kf = self.map.keyframes[i]
-                    r_rel = kf.r_cw @ r_old.T
-                    t_rel = kf.t_cw - r_rel @ t_old
-                    kf.r_cw = normalize_np(r_rel @ rk.r_cw)
-                    kf.t_cw = (r_rel @ rk.t_cw + t_rel).astype(np.float32)
+                self._carry_keyframes(next_kf, kf_list, ref_pre, (rk.r_cw, rk.t_cw))
             alive = self.map.pt_active[pt_ids] & (self.map.pt_gen[pt_ids] == gen)
             self.map.pt_xyz[pt_ids[alive]] = p_new[: len(pt_ids)][alive]
             # remove observations BA marked as outliers
@@ -1766,98 +1745,42 @@ class MonoSlam:
                 for s in np.nonzero(dropped[row])[0]:
                     self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
             self.map.version += 1
-        return True
 
-    def _begin_loop_correction(self):
-        """Called by the loop closer under the map lock as a correction
-        begins. Threaded: a new loop epoch, which aborts an older post-loop
-        GBA's write-back and drops a BA solved before it."""
-        if self.async_mapping:
-            self._loop_epoch += 1
+    def _carry_keyframes(self, next_kf: int, kf_list, ref_pre, ref_new) -> list:
+        """Move the keyframes made since a BA's snapshot (ids >= next_kf, none
+        of them solved) with the world motion that took the newest solved
+        keyframe from pose `ref_pre` to `ref_new`, each (r_cw, t_cw) (the
+        reference's post-GBA spanning-tree pass; the caller holds the map
+        lock). A threaded tracker keeps making keyframes while the worker
+        solves: left behind, they and the tracker's re-base on the newest of
+        them stay in the unsolved map. Returns the moved keyframes."""
+        (r_old, t_old), (r_ref, t_ref) = ref_pre, ref_new
+        moved = [self.map.keyframes[i] for i in sorted(self.map.keyframes) if i >= next_kf and i not in kf_list]
+        for kf in moved:
+            r_rel = kf.r_cw @ r_old.T
+            t_rel = kf.t_cw - r_rel @ t_old
+            kf.r_cw = normalize_np(r_rel @ r_ref)
+            kf.t_cw = (r_rel @ t_ref + t_rel).astype(np.float32)
+        self.kfs_carried += len(moved)
+        return moved
 
     def _post_loop_gba(self, anchor_kf: int, scale_by_kf=None):
         """Full-map BA after a loop correction, anchored at the loop (old
         side) keyframe (reference RunGlobalBundleAdjustment, vision flavour;
         `scale_by_kf`, each keyframe's local world-scale change, is for the
-        VI override). Lock-step: in the mapping job. Async: on a thread of
-        its own (the reference spawns one a loop), declared to cuda_graph
-        before it starts and joined by `wait_mapping_idle`, `shutdown` and
-        `_recapture`; the loop epoch it was started in decides whether its
-        write-back still applies."""
-        if not self.async_mapping:
-            return self._post_loop_gba_impl(anchor_kf, scale_by_kf, None)
-        with self.map_lock:
-            epoch = self._loop_epoch
-        stream = None
-        if self._on_card:
-            # the GBA's stream starts after what the calling (worker) stream queued
-            stream = torch.cuda.Stream(self.device)
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            cuda_graph.register_thread()
-        t = threading.Thread(target=self._gba_thread_main, args=(anchor_kf, scale_by_kf, epoch, stream),
-                             name="viorb-gba", daemon=True)
-        self._gba_threads.append(t)
-        t.start()
-
-    def _gba_thread_main(self, anchor_kf, scale_by_kf, epoch, stream):
-        try:
-            with torch.cuda.stream(stream) if stream is not None else nullcontext():
-                self._post_loop_gba_impl(anchor_kf, scale_by_kf, epoch)
-        except Exception as e:  # surfaced by wait_mapping_idle / shutdown
-            self._gba_error = e
-
-    def _post_loop_gba_impl(self, anchor_kf: int, scale_by_kf, epoch):
-        """The global solve: every keyframe, the anchor fixed, every active
-        point (the landmark block the next power of two >= their count: a
-        truncated point set leaves the rest of the map inconsistent with the
-        new poses, and later local BAs drag the trajectory back toward it).
-        Threaded (`epoch` not None): afterwards, keyframes made during the
-        solve follow their spanning-tree parent's correction, and points
-        made during it their first keyframe's (reference :738-819)."""
+        VI override): every keyframe, every active point (the landmark block
+        the next power of two >= their count: a truncated point set leaves
+        the rest of the map inconsistent with the new poses, and later local
+        BAs drag the trajectory back toward it), eager. It runs in the loop
+        job in every mode, inside the job's hold of the map lock (module
+        docstring)."""
         with self.map_lock:
             ids = sorted(self.map.keyframes.keys())
-            if len(ids) < 3:
-                return
-            pre_pose = {i: (kf.r_cw.copy(), kf.t_cw.copy()) for i, kf in self.map.keyframes.items()}
-            pre_pts = self.map.pt_active.copy()
-            n_pts = int(pre_pts.sum())
-        cap = max(self.max_ba_landmarks, 1 << int(np.ceil(np.log2(max(n_pts, 1)))))
-        abort = None if epoch is None else (lambda: self._loop_epoch != epoch)
-        applied = self._local_ba(ids, fixed=[anchor_kf], max_landmarks=cap, abort_check=abort,
-                                 carry_new=epoch is None, kind="gba")
-        if epoch is None or not applied:
+            n_pts = int(self.map.pt_active.sum())
+        if len(ids) < 3:
             return
-        with self.map_lock:
-            if self._loop_epoch != epoch:
-                return
-            for i in sorted(self.map.keyframes.keys()):
-                if i in pre_pose:
-                    continue
-                kf = self.map.keyframes[i]
-                p = kf.parent_kf
-                if p not in pre_pose or p not in self.map.keyframes:
-                    continue
-                r_old, t_old = pre_pose[p]
-                pk = self.map.keyframes[p]
-                # its children (and its new points) refer to ITS pre-correction pose
-                pre_pose[i] = (kf.r_cw.copy(), kf.t_cw.copy())
-                r_rel = kf.r_cw @ r_old.T
-                t_rel = kf.t_cw - r_rel @ t_old
-                kf.r_cw = normalize_np(r_rel @ pk.r_cw)
-                kf.t_cw = (r_rel @ pk.t_cw + t_rel).astype(np.float32)
-            n = len(pre_pts)
-            new_pts = np.nonzero(self.map.pt_active[:n] & ~pre_pts)[0]
-            new_pts = np.concatenate([new_pts, n + np.nonzero(self.map.pt_active[n:])[0]])
-            for p_ in new_pts:
-                ref = int(self.map.pt_first_kf[p_])
-                if ref not in pre_pose or ref not in self.map.keyframes:
-                    continue
-                r_old, t_old = pre_pose[ref]
-                kf = self.map.keyframes[ref]
-                x_cam = r_old @ self.map.pt_xyz[p_] + t_old
-                self.map.pt_xyz[p_] = kf.r_cw.T @ (x_cam - kf.t_cw)
-            # the spanning-tree pass moved keyframes after the BA's publication
-            self.map.version += 1
+        cap = max(self.max_ba_landmarks, 1 << int(np.ceil(np.log2(max(n_pts, 1)))))
+        self._local_ba(ids, fixed=[anchor_kf], max_landmarks=cap, kind="gba")
 
     def _can_cull(self, k: int) -> bool:
         """Subclass veto hook (VI: the preintegration time-gap guard)."""

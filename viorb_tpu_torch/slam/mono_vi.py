@@ -1,4 +1,4 @@
-"""Monocular visual-inertial SLAM, lock-step (port of
+"""Monocular visual-inertial SLAM, lock-step or with async mapping (port of
 viorb_tpu/slam/mono_vi.py: `MonoViSlam`).
 
 The vision pipeline (slam/mono.py) with:
@@ -42,8 +42,50 @@ With a vocabulary and `enable_loop_closing`, a loop correction ends in the
 VI flavour of the post-loop global BA (`_post_loop_gba`): NavStates
 re-derived from the corrected poses, then the full-chain VI BA.
 
-Not ported here: the async and streaming modes (ROADMAP queue 1, D5); they
-raise NotImplementedError.
+Async mapping (`async_mapping=True`) runs the mapping job on MonoSlam's
+worker thread, and the worker never touches the state the tracker owns
+(`nav_cur`, the frame prior, the velocity, the last frame's pose, the
+biases, gravity): an event that invalidates it (the VI init's rescale and
+its refinements, a VI BA that moved the job's keyframe, a loop correction's
+VI post-loop GBA, which runs on the worker inside the loop job) leaves new
+biases and gravity in `_pending_imu_params` and bumps `_rebase_epoch` under
+the map lock, and the tracker re-bases once, at its next frame entry
+(`_drain_tracker_rebase`): `nav_cur` re-derived from the newest chain
+keyframe's NavState propagated through the since-keyframe IMU samples (one
+graph replay on the card), the last frame re-posed on it. Before VI init a
+frame is a vision frame and MonoSlam's `_rebase_last_frame` re-bases it;
+after VI init only the drain re-poses the last frame.
+
+The tracker is kept in the worker's map where the reference lets it run
+ahead (on the card, the arc un-paced and the circuit at 10 fps):
+  * until VI init and through its refinement window (`init_refine_window`
+    after it) a frame waits for an idle worker, as lock-step tracks: the
+    closed-form init solves on the chain's camera centres, and keyframes
+    made from frames tracked ahead of their predecessors' jobs gave it as
+    little as half the true scale (un-paced runs ended 12-35 % short of the
+    true size); in the window the closed-form refinements (1-2 s) and the
+    gravity-vertex GBAs (2.5-3.1 s, eager) rescale and re-orient the map,
+    and a tracker ahead of them left it (IMU-only from frame 37 on at 10
+    fps; a backlog gate, the GBAs under the map lock and an idle-gated
+    ratio trigger each still lost it); after the window it runs ahead as
+    the reference's does (on the card, over the 30 s laps at 10 fps, it
+    loses the map within a few seconds of the window's end where
+    lock-step tracks every frame: an open fault, ROADMAP queue 3);
+  * a VI frame tracked while a write-back moved the map makes no keyframe:
+    left in the map before it, that keyframe became the newest and the
+    next re-base moved the tracker back into the old map;
+  * keyframes made during a VI BA's solve follow the newest solved
+    keyframe's motion, and those made during a VI init's get NavStates.
+A threaded run
+captures the VI core's two graphs, the drain's graph and the local VI BA
+at both pose buckets before its threads start; a worker never captures,
+and a missing capture raises. Deliberate difference from the reference:
+VI init sets `vi_ready` in the same hold of the map lock as its rescale and
+epoch bump (the reference sets it after the lock, so a drain in between
+drops the epoch without re-deriving `nav_cur`).
+
+Not ported here: streaming VI (ROADMAP queue 1, D6); it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,8 +97,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from viorb_tpu_torch.imu.navstate import NavState
-from viorb_tpu_torch.imu.preintegration import PreintegratedImu, compose_preint, preintegrate_batch
+from viorb_tpu_torch.cuda_graph import GraphedFunction
+from viorb_tpu_torch.imu.navstate import GRAVITY_W, NavState, propagate_navstate
+from viorb_tpu_torch.imu.preintegration import PreintegratedImu, compose_preint, preintegrate, preintegrate_batch
 from viorb_tpu_torch.imu.types import ImuBatch, ImuNoise, padded_arrays
 from viorb_tpu_torch.optim.ba import (
     GRAPHED_MAX_POSES,
@@ -75,15 +118,25 @@ from viorb_tpu_torch.slam.tracking_loop import make_vi_pipeline_core
 from viorb_tpu_torch.slam.vi_init import estimate_gyro_bias, try_vi_init
 
 IMU_SAFE_WINDOW = 3.0  # seconds of IMU-only tracking allowed
-_NOT_PORTED_D5 = ("MonoViSlam runs lock-step only: async mapping and streaming VI are not ported yet "
-                  "(ROADMAP queue 1, D5)")
+_NOT_PORTED_D6 = ("MonoViSlam runs lock-step or with async mapping: streaming VI is not ported yet "
+                  "(ROADMAP queue 1, D6: streaming MonoViSlam)")
+_REBASE_GRAPHS: dict = {}  # ImuNoise -> the drain's GraphedFunction, process-wide
+
+
+def _rebase_graph(noise: ImuNoise) -> GraphedFunction:
+    """The drain's device step, (batch, bias_g, bias_a, t0, t1, nav, gravity)
+    -> the NavState `nav` propagated through the samples of `batch` over
+    [t0, t1]: one graph on the card, eager on the CPU."""
+    return _REBASE_GRAPHS.setdefault(tuple(noise), GraphedFunction(
+        lambda batch, bg, ba, t0, t1, nav, g: propagate_navstate(nav, preintegrate(batch, bg, ba, t0, t1, noise), g)))
 
 
 class MonoViSlam(MonoSlam):
     """Monocular-inertial SLAM (the reference's TrackMonoVI facade),
-    lock-step. `process_frame_vi(image, ts, imu_samples)` is the entry
-    point; `device=None` is the card, `device="cpu"` runs the eager
-    versions."""
+    lock-step or with `async_mapping=True`. `process_frame_vi(image, ts,
+    imu_samples)` is the entry point; `device=None` is the card,
+    `device="cpu"` runs the eager versions. Call `shutdown()` after an
+    async run."""
 
     def __init__(
         self,
@@ -96,8 +149,8 @@ class MonoViSlam(MonoSlam):
         imu_capacity: int = 256,
         **kwargs,
     ):
-        if kwargs.get("async_mapping") or kwargs.get("streaming"):
-            raise NotImplementedError(_NOT_PORTED_D5)
+        if kwargs.get("streaming"):
+            raise NotImplementedError(_NOT_PORTED_D6)
         super().__init__(cam, **kwargs)
         self.r_bc = np.eye(3, dtype=np.float32) if r_bc is None else np.asarray(r_bc, np.float32)
         self.p_bc = np.zeros(3, np.float32) if p_bc is None else np.asarray(p_bc, np.float32)
@@ -143,11 +196,23 @@ class MonoViSlam(MonoSlam):
         self._map_bias_g = np.zeros(3, np.float32)
         self._map_bias_a = np.zeros(3, np.float32)
         self._map_gravity: Optional[np.ndarray] = None
+        # async: mapping-side events bump the epoch; the tracker re-bases
+        # once at its next frame entry and takes the pending biases and
+        # gravity (bias_g, bias_a, gravity) then (module docstring)
+        self._rebase_epoch = 0
+        self._rebase_seen = 0
+        self._pending_imu_params: Optional[tuple] = None
+        self.rebases = 0  # re-bases the tracker applied
+        self.saturated_kf_decisions = 0  # keyframe decisions under the 1.5 s gap (two jobs waiting)
+        self.frames_across_writeback = 0  # VI frames tracked while a write-back moved the map
+        self._rebase = _rebase_graph(imu_noise)
         # the graphed VI core, process-wide (its cache key reads the
         # extrinsics back from the device: once here, never inside a frame)
         self._vi_core = make_vi_pipeline_core(self.cam, self.extractor, self.ext, self.imu_noise)
         self._true = self._up(np.ones((), bool)).reshape(())
         # the local VI BA, one CUDA graph a pose bucket on the card
+        # (captured at first use in lock-step, before the threads start
+        # when async)
         self._vi_ba_graph = make_local_vi_ba(self.cam)
         # host-clock ms of each VI mapping BA: (kind, ms), in order
         self.vi_ba_times: List[tuple] = []
@@ -209,14 +274,115 @@ class MonoViSlam(MonoSlam):
         a = np.asarray(x, np.float32)
         return self._up(a).reshape(a.shape)
 
+    # -- threads ---------------------------------------------------------------
+
+    def _capture_before_threads(self, img: torch.Tensor, dmap):
+        """MonoSlam's graphs, then the VI core's two graphs at the frame's,
+        the padded local map's and `imu_capacity`'s shapes, the drain's
+        graph, and the local VI BA at both pose buckets on placeholder
+        problems (a capture records shapes; the values are any)."""
+        super()._capture_before_threads(img, dmap)
+        z3 = np.zeros(3, np.float32)
+        nav = self._nav_up(NavState(z3, z3, np.eye(3, dtype=np.float32), z3, z3, z3, z3))
+        zero, t, g = self._f32(z3), self._f32(0.0), self._f32(GRAVITY_W)
+        batch = self._imu_batch([])
+        for graph in self._vi_core.graphs.values():
+            graph.prepare(img, nav, nav, batch, batch, t, t, t, zero, zero, g, nav, self._f32(np.zeros((15, 15))),
+                          *dmap)
+        self._rebase.prepare(batch, zero, zero, t, t, nav, g)
+        for k in sorted({pose_bucket(4), GRAPHED_MAX_POSES}):
+            self._vi_ba_graph.prepare(*self._placeholder_vi_ba(k))
+
+    def _placeholder_vi_ba(self, k: int):
+        """The local VI BA's arguments at pose bucket k: MonoSlam's vision
+        placeholder (no valid observation, every pose fixed) with identity
+        NavStates and k - 1 empty, invalid IMU edges."""
+        vstate, kf_idx, uv, inv_s2, valid, fixed = self._placeholder_ba(k)
+        z3 = np.zeros((k, 3), np.float32)
+        eye = np.broadcast_to(np.eye(3, dtype=np.float32), (k, 3, 3))
+        nav = self._nav_up(NavState(z3, z3, eye, z3, z3, z3, z3))
+        zero = self._f32(np.zeros(3))
+        pre = preintegrate_batch(self._stack_batches([self._imu_batch([])] * (k - 1)), zero, zero,
+                                 self._f32(np.zeros(k - 1)), self._f32(np.full(k - 1, 0.01)), self.imu_noise)
+        return (ViBAState(nav, vstate.points), kf_idx, uv, inv_s2, valid, self.ext, pre,
+                self._up(np.zeros(k - 1, bool)), self._f32(np.ones(6)), self._f32(GRAVITY_W), fixed)
+
     # -- frame entry ---------------------------------------------------------
+
+    def _drain_tracker_rebase(self):
+        """Async: apply the mapping-side events since the last frame to the
+        tracker, once, at frame entry (lock-step applies them inline): take
+        the pending biases and gravity, drop the frame prior, the last
+        frame's NavState and the velocity, and after VI init re-derive
+        `nav_cur` from the newest chain keyframe's NavState, propagated
+        through the since-keyframe IMU samples up to the last frame's time,
+        and re-pose the last frame on it."""
+        with self.map_lock:
+            if self._rebase_seen == self._rebase_epoch:
+                return
+            self._rebase_seen = self._rebase_epoch
+            self.rebases += 1
+            if self._pending_imu_params is not None:
+                self.bias_g, self.bias_a, self.gravity = self._pending_imu_params
+                self._pending_imu_params = None
+            self.frame_prior = None
+            self._nav_last_frame = None
+            self.velocity = None
+            if not self.vi_ready:
+                return
+            chain = [k for k in self.kf_chain if k in self.map.keyframes]
+            if not chain:
+                return
+            last_kf = self.map.keyframes[chain[-1]]
+            if not (last_kf.nav and "state" in last_kf.nav):
+                return
+            ns, kf_ts = last_kf.nav["state"], last_kf.timestamp
+            imu_buf = list(self.imu_since_kf)
+        last = self.last_frame
+        if last is not None and last.timestamp > kf_ts:
+            # the samples up to the last frame only: the current frame's,
+            # appended at its entry, are the VI core's since-frame batch (the
+            # reference integrates them here too, and the core again)
+            imu_buf = [x for x in imu_buf if x[0] <= last.timestamp]
+            ns_d = self._rebase(self._imu_batch(imu_buf), self._f32(self.bias_g), self._f32(self.bias_a),
+                                self._f32(kf_ts), self._f32(last.timestamp), self._nav_up(ns), self._f32(self.gravity))
+            ns = NavState(*self._pull(*ns_d))
+            last.r_cw, last.t_cw = self._tcw_from_nav(ns)
+            self._set_nav_cur(ns, ns_d)
+        else:
+            self._set_nav_cur(ns)
+        self.last_vision_time = max(self.last_vision_time, last.timestamp if last is not None else kf_ts)
+
+    def _wait_for_worker(self):
+        """Async: until VI init and its refinement window
+        (`init_refine_window` after it) have passed, hold the frame until the
+        mapping worker is idle (module docstring)."""
+        last = self.last_frame
+        if self.vi_ready and last is not None and last.timestamp - self.init_time >= self.init_refine_window:
+            return
+        self._mapping_queue.join()
+        if self._worker_error is not None:
+            raise RuntimeError("mapping worker died") from self._worker_error
+
+    def _rebase_last_frame(self):
+        """MonoSlam's re-base of the last frame on its keyframe's new pose,
+        for vision frames (before VI init) only: after VI init the drain
+        re-poses the last frame, and a rescale is no rigid move."""
+        if not self.vi_ready:
+            super()._rebase_last_frame()
 
     def process_frame_vi(self, image, ts: float, imu_samples) -> dict:
         """Track one frame. imu_samples: iterable of (t, gyro (3,), acc (3,))
-        since the last call."""
+        since the last call. Async, until VI init and its refinement window
+        have passed, a frame waits for an idle mapping worker
+        (`_wait_for_worker`)."""
         for s in imu_samples:
             self.imu_since_kf.append(s)
             self.imu_since_frame.append(s)
+        if self.async_mapping:
+            self._ensure_threads(image)
+            self._wait_for_worker()
+            self._drain_tracker_rebase()
         if not self.vi_ready:
             out = self.process_frame(image, ts)
             # pre-init loss with a tiny map is unrecoverable: full reset
@@ -314,9 +480,11 @@ class MonoViSlam(MonoSlam):
 
     def _insert_keyframe(self, fr: FrameRecord):
         super()._insert_keyframe(fr)
-        # the mapping job (VI BA, init rescale) ran inline: re-sync the frame
-        kf_now = self.map.keyframes[self.last_kf_id]
-        fr.r_cw, fr.t_cw = kf_now.r_cw.copy(), kf_now.t_cw.copy()
+        if not self.async_mapping:
+            # the mapping job (VI BA, init rescale) ran inline: re-sync the
+            # frame (async re-bases at the next frame entry)
+            kf_now = self.map.keyframes[self.last_kf_id]
+            fr.r_cw, fr.t_cw = kf_now.r_cw.copy(), kf_now.t_cw.copy()
 
     def _mapping_ba(self, kf_id: int, window):
         """Vision windowed BA until VI init succeeds (plus the init attempt),
@@ -324,7 +492,12 @@ class MonoViSlam(MonoSlam):
         scale-gauge-free solve would fight the IMU's metric scale. Until
         `init_refine_window` seconds after init, the full-chain gravity-vertex
         GBA fires at each chain-span mark, and below the first mark the
-        closed-form init is re-solved every second keyframe."""
+        closed-form init is re-solved every second keyframe. Async, after
+        VI init: the VI BA is skipped while a newer keyframe waits (the
+        next job solves a superset window), at most twice in a row, and
+        never after a gravity-vertex GBA; before VI init the vision BA is
+        never skipped (the closed-form init solves on its camera
+        centers)."""
         if not self.vi_ready:
             with self.map_lock:
                 anchor = set()
@@ -348,10 +521,16 @@ class MonoViSlam(MonoSlam):
                 while self._gw_mark_done < len(marks) and span >= marks[self._gw_mark_done]:
                     self._gw_mark_done += 1
                 self._vi_local_ba(kf_id, window_size=chain_len, optimize_gravity=True, iters=(10, 8))
+                self._ba_skips = 0
                 return
             if span < marks[0] and chain_len - self._last_refine_len >= 2:
                 self._refine_vi_init()
                 self._last_refine_len = chain_len
+        if self.async_mapping and not self._mapping_queue.empty() and self._ba_skips < 2:
+            self._ba_skips += 1
+            self.ba_skipped += 1
+            return
+        self._ba_skips = 0
         self._vi_local_ba(kf_id)
 
     # -- VI initialization ---------------------------------------------------
@@ -377,11 +556,12 @@ class MonoViSlam(MonoSlam):
         res = try_vi_init(*snap, r_bc=self.r_bc, p_bc=self.p_bc, noise=self.imu_noise)
         if res is None or not res.success or res.scale <= 0:
             return
-        self._apply_init_result(res, chain)
-        self.vi_ready = True
-        last = self.map.keyframes[chain[-1]]
-        self.last_vision_time = last.timestamp
-        self.init_time = last.timestamp
+        with self.map_lock:  # an async tracker's drain sees the rescale and vi_ready together
+            self._apply_init_result(res, chain)
+            self.vi_ready = True
+            last = self.map.keyframes[chain[-1]]
+            self.last_vision_time = last.timestamp
+            self.init_time = last.timestamp
         # the post-init global VI BA with gravity fixed at the closed-form
         # estimate (over a short window the free-gravity GBA trades gravity
         # error for bias)
@@ -405,8 +585,14 @@ class MonoViSlam(MonoSlam):
     def _apply_init_result(self, res, chain):
         """Apply a (re-)estimated VI init: rescale the map and the
         trajectory, refresh gravity and biases, give the chain keyframes
-        NavStates with the solved velocities; the tracker continues from the
-        newest chain keyframe."""
+        NavStates with the solved velocities, all in one hold of the map
+        lock; the tracker continues from the newest chain keyframe (async:
+        at its next frame entry, with the biases and gravity left pending).
+        Chain keyframes an async tracker made during the solve get NavStates
+        from their rescaled poses, with their own velocity rescaled or, when
+        they have none yet, the velocity from their chain predecessor (the
+        reference leaves their NavStates alone: unscaled, or none, so its
+        tracker's drain can find none on the newest keyframe)."""
         with self.map_lock:
             self._log_init_state(res, self.map.keyframes[chain[-1]].timestamp)
             s = res.scale
@@ -422,9 +608,23 @@ class MonoViSlam(MonoSlam):
                 kf = self.map.keyframes[kf_id]
                 kf.nav = kf.nav or {}
                 kf.nav["state"] = self._nav_host(kf.r_cw, kf.t_cw, res.velocities[idx], bias_g, bias_a)
+            prev = self.map.keyframes[chain[-1]]
+            for kf_id in [k for k in self.kf_chain if k > chain[-1] and k in self.map.keyframes]:
+                kf = self.map.keyframes[kf_id]
+                ns = self._nav_host(kf.r_cw, kf.t_cw, None, bias_g, bias_a)
+                if "state" in kf.nav:
+                    v = np.asarray(kf.nav["state"].v) * s
+                else:
+                    v = (ns.p - prev.nav["state"].p) / max(kf.timestamp - prev.timestamp, 1e-3)
+                kf.nav["state"] = ns._replace(v=v.astype(np.float32))
+                prev = kf
             self.map.version += 1
             self._map_bias_g, self._map_bias_a = bias_g, bias_a
             self._map_gravity = res.gravity_w.astype(np.float32)
+            if self.async_mapping:
+                self._pending_imu_params = (bias_g, bias_a, self._map_gravity)
+                self._rebase_epoch += 1
+                return
             self.bias_g, self.bias_a, self.gravity = bias_g, bias_a, self._map_gravity
             self._set_nav_cur(self.map.keyframes[chain[-1]].nav["state"])
             if self.last_frame is not None and self.last_frame.t_cw is not None:
@@ -448,7 +648,8 @@ class MonoViSlam(MonoSlam):
 
     def _need_new_keyframe(self, ts: float) -> bool:
         """The vision rules, or the VI time-gap rule: a keyframe after >= 0.5 s
-        without one, so preintegration segments stay short."""
+        without one, so preintegration segments stay short; async, while two
+        jobs wait in the mapping queue, after >= 1.5 s."""
         if super()._need_new_keyframe(ts):
             return True
         if self.suppress_keyframes or self.localization_only:
@@ -456,7 +657,13 @@ class MonoViSlam(MonoSlam):
         if not self.vi_ready or self.n_tracked <= 15:
             return False
         ref_kf = self.map.keyframes.get(self.last_kf_id)
-        return ref_kf is not None and ts - ref_kf.timestamp >= 0.5
+        if ref_kf is None:
+            return False
+        gap = ts - ref_kf.timestamp
+        if self.async_mapping and self._mapping_queue.qsize() >= 2:
+            self.saturated_kf_decisions += 1
+            return gap >= 1.5
+        return gap >= 0.5
 
     def reset_vi(self):
         """Reset the whole VI system (map and inertial state)."""
@@ -478,6 +685,9 @@ class MonoViSlam(MonoSlam):
         self._map_bias_g = np.zeros(3, np.float32)
         self._map_bias_a = np.zeros(3, np.float32)
         self._map_gravity = None
+        self._rebase_epoch = 0
+        self._rebase_seen = 0
+        self._pending_imu_params = None
         self._gw_mark_done = 0
         self._last_refine_len = 0
 
@@ -488,6 +698,7 @@ class MonoViSlam(MonoSlam):
         along) plus gravity, biases, the keyframe chain and the init time."""
         from viorb_tpu_torch.mapping.serialize import save_map
 
+        self.wait_mapping_idle()
         with self.map_lock:
             extra = {
                 "vi_ready": np.array(self.vi_ready),
@@ -566,7 +777,8 @@ class MonoViSlam(MonoSlam):
         pre0 = preintegrate_batch(batches, zero, zero, self._f32([b[0] for b in buf[:-1]]),
                                   self._f32([b[0] for b in buf[1:]]), self.imu_noise)
         self.bias_g = estimate_gyro_bias(r_wb, pre0).astype(np.float32)
-        self._map_bias_g = self.bias_g
+        with self.map_lock:
+            self._map_bias_g = self.bias_g
         # velocity from the last position difference
         p_cb = -(self.r_bc.T @ self.p_bc)
         p_wb = [-r_cw.T @ t_cw + r_cw.T @ p_cb for _, r_cw, t_cw, _ in buf[-2:]]
@@ -613,6 +825,7 @@ class MonoViSlam(MonoSlam):
             last_kf = self.map.keyframes[self.last_kf_id]
             ns_kf, t_kf = last_kf.nav["state"], last_kf.timestamp
             map_version = self.map.version
+            epoch = self._rebase_epoch
         pts, dmap = self._device_local_map()
         use_prior = (self.frame_prior is not None and self._prior_map_version == map_version
                      and self._nav_last_frame is not None)
@@ -666,9 +879,15 @@ class MonoViSlam(MonoSlam):
         self._nav_last_frame = ns_j_d
         self._count_tracked(fr, pts, pf, inl, visible)
         self.frames_since_kf += 1
-        if self._need_new_keyframe(ts):
-            self._insert_keyframe(fr)
-            self.frames_since_kf = 0
+        # a write-back that moved the map while this frame was tracked (its
+        # epoch bump) leaves the frame in the map before it: it makes no
+        # keyframe, which the next frame's drain would re-base on (async)
+        with self.map_lock:
+            if self._rebase_epoch != epoch:
+                self.frames_across_writeback += 1
+            elif self._need_new_keyframe(ts):
+                self._insert_keyframe(fr)
+                self.frames_since_kf = 0
         return fr
 
     def _post_loop_gba(self, anchor_kf: int, scale_by_kf=None):
@@ -680,8 +899,11 @@ class MonoViSlam(MonoSlam):
         and scaled by the keyframe's local world-scale change; then the
         full-chain VI BA, so the IMU chain and the closed loop settle
         together (the scale-free vision GBA would fight the IMU's metric
-        scale); then the tracker re-based on the corrected newest keyframe.
-        Before VI init, the vision GBA."""
+        scale); then the tracker re-based on the corrected newest keyframe
+        (async: the epoch bumped, the tracker re-bases at its next frame).
+        It runs in the loop job (async: on the worker), inside the job's
+        hold of the map lock, as MonoSlam's does. Before VI init, the
+        vision GBA."""
         if not self.vi_ready:
             return super()._post_loop_gba(anchor_kf, scale_by_kf)
         p_cb = -(self.r_bc.T @ self.p_bc)
@@ -700,6 +922,10 @@ class MonoViSlam(MonoSlam):
             chain = [k for k in self.kf_chain if k in self.map.keyframes]
         if len(chain) >= 3:
             self._vi_local_ba(chain[-1], window_size=len(chain), iters=(10, 8))
+        if self.async_mapping:
+            with self.map_lock:
+                self._rebase_epoch += 1
+            return
         # the tracker restarts from the corrected newest keyframe: the
         # marginalized frame prior and the last frame's NavState are stale
         last = self.map.keyframes[chain[-1]]
@@ -718,7 +944,8 @@ class MonoViSlam(MonoSlam):
         consecutive IMU edges, plus composed strides 2, 4 and 8 when a window
         of >= 5 keyframes is given (the global BA); the gravity direction is
         free with `optimize_gravity`. Snapshot under the lock, solve, one
-        pull, write-back under the lock."""
+        pull, write-back under the lock (async: the tracker-side gravity
+        left pending and the epoch bumped, as the module docstring says)."""
         t_start = time.perf_counter()
         with self.map_lock:
             chain = [k for k in self.kf_chain if k in self.map.keyframes]
@@ -751,6 +978,11 @@ class MonoViSlam(MonoSlam):
             points[: len(pt_ids)] = self.map.pt_xyz[pt_ids]
             fixed_mask = np.ones(k, bool)
             fixed_mask[: len(kf_list)] = [i in fixed or i == min(window) for i in kf_list]
+            # keyframes made after this snapshot ride the solve's correction
+            # through the newest solved keyframe (the write-back)
+            next_kf = self.map._next_kf
+            ref_slot = max((s for s in range(len(kf_list)) if not fixed_mask[s]), key=kf_list.__getitem__,
+                           default=None)
             # the IMU edges between consecutive window keyframes (slots
             # 0..n_win-1); the default chain's remaining k-1 edges run into the
             # anchors and are invalid
@@ -824,7 +1056,10 @@ class MonoViSlam(MonoSlam):
         with self.map_lock:
             if g_new is not None:
                 self._map_gravity = pulled[9].astype(np.float32)
-                self.gravity = self._map_gravity
+                if self.async_mapping:
+                    self._pending_imu_params = (self._map_bias_g, self._map_bias_a, self._map_gravity)
+                else:
+                    self.gravity = self._map_gravity
             for s_i, i in enumerate(kf_list):
                 if fixed_mask[s_i] or i not in self.map.keyframes:
                     continue
@@ -833,12 +1068,18 @@ class MonoViSlam(MonoSlam):
                 kf.nav = kf.nav or {}
                 kf.nav["state"] = ns
                 kf.r_cw, kf.t_cw = self._tcw_from_nav(ns)
+            if ref_slot is not None:
+                self._carry_keyframes(next_kf, kf_list, self._tcw_from_nav(navs[ref_slot]),
+                                      self._tcw_from_nav(NavState(*(x[ref_slot] for x in nav_new))))
             # only landmarks still alive take the solved positions
             alive = self.map.pt_active[pt_ids]
             self.map.pt_xyz[pt_ids[alive]] = p_new[: len(pt_ids)][alive]
             if kf_id in kf_list:
-                s_i = kf_list.index(kf_id)
-                self._set_nav_cur(NavState(*(x[s_i].copy() for x in nav_new)))
+                if self.async_mapping:  # the tracker re-bases on the moved keyframe
+                    self._rebase_epoch += 1
+                else:
+                    s_i = kf_list.index(kf_id)
+                    self._set_nav_cur(NavState(*(x[s_i].copy() for x in nav_new)))
             dropped = valid & ~valid_new
             for row in np.nonzero(dropped[: len(pt_ids)].any(axis=1))[0]:
                 p = int(pt_ids[row])
@@ -848,6 +1089,23 @@ class MonoViSlam(MonoSlam):
                     self.map.remove_observation(p, int(kf_list[kf_idx[row, s]]))
             self.map.version += 1
         self.vi_ba_times.append((kind, len(kf_list), (time.perf_counter() - t_start) * 1e3))
+
+    def _carry_keyframes(self, next_kf: int, kf_list, ref_pre, ref_new) -> list:
+        """MonoSlam's carry of the keyframes made during a solve; their
+        NavStates' position, rotation and velocity follow the same world
+        motion. The reference's VI write-back leaves them in the unsolved
+        map."""
+        moved = super()._carry_keyframes(next_kf, kf_list, ref_pre, ref_new)
+        (r_old, t_old), (r_ref, t_ref) = ref_pre, ref_new
+        r_corr = r_ref.T @ r_old
+        c_old, c_new = -r_old.T @ t_old, -r_ref.T @ t_ref
+        for kf in moved:
+            if kf.nav and "state" in kf.nav:
+                ns = kf.nav["state"]
+                kf.nav["state"] = ns._replace(p=(r_corr @ (ns.p - c_old) + c_new).astype(np.float32),
+                                              v=(r_corr @ ns.v).astype(np.float32),
+                                              r=(r_corr @ ns.r).astype(np.float32))
+        return moved
 
     def _vi_ba_call(self, graph, *args):
         """The local VI BA through `graph`: a replay on the card, the eager

@@ -28,11 +28,11 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd
 
 from viorb_tpu_torch.geometry.so3 import exp_so3, log_so3
 from viorb_tpu_torch.imu.preintegration import PreintegratedImu, compose_preint, preintegrate_batch
 from viorb_tpu_torch.imu.types import ImuBatch, ImuNoise
+from viorb_tpu_torch.optim.forward_ad import jacfwd
 
 GRAVITY_MAG = 9.810
 
