@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
 functions, lock-step, async and streaming SLAM, lock-step and async
-monocular-inertial SLAM, and place recognition and loop closing on one
-NVIDIA GPU.
+monocular-inertial SLAM, place recognition and loop closing, and lock-step
+stereo and RGB-D SLAM on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,7 @@ Phases, in order; any failure raises and exits non-zero:
   1. report the card (name, power limit), CUDA and nvcc versions;
   2. build the hand-written kernels from viorb_tpu_torch/csrc/ with nvcc,
      one process a source, all started together (K1's library, two kernel
-     entries; K8's);
+     entries; K8's; K9's);
   3. hold each kernel entry to its plain PyTorch version on the card, at
      the shapes the tracking step gives it, with torch.equal: the
      single-image FAST score map on 24 level images, and the fused
@@ -141,7 +141,25 @@ Phases, in order; any failure raises and exits non-zero:
      around the closure printed); no kernel build, library load or graph
      capture off the main thread in any of them; K1 and K8 launches by path
      (K8's global path 0 on each);
- 10. time the fused launch, the 8 single-level launches, their plain
+ 10. stereo and RGB-D, lock-step: K9 (the stereo sub-pixel SAD) against
+     its plain version with torch.equal on the 0.11 m stereo arc's frame 0
+     (its descriptor matches) and on keypoints at each image border with
+     unmatched ur0 = -1 rows, its device time beside the plain version's,
+     its bound and an empty launch; tests/test_e2e_stereo.py's contracts
+     (the stereo depth of frame 0: > 200 matches, median error < 3 %; the
+     40-frame arc at 800 features, a keyframe at least every 5 frames, a
+     warm-up run and a measured one: > 90 % of frames OK, metric ATE <
+     0.09 m, < 0.02 m from 2 s, scale ratio 0.97-1.03),
+     tests/test_e2e_rgbd.py's (frame 0 OK, > 90 % OK, > 300 points, metric
+     ATE < 0.05 m) and tests/test_e2e_stereo_loop.py's (the 100-frame noisy
+     circuit with a vocabulary trained as that test trains it: a loop
+     closed with the Sim3 scale pinned, metric ATE < 0.05 m, scale ratio
+     0.97-1.03); in each run K1 launches = frames + right extractions, K9
+     launches = right extractions, every local BA a graph replay (the
+     stereo ones as "stereo_local"), host ms a frame by kind (init,
+     keyframe, steady), no kernel build, library load or graph capture off
+     the main thread;
+ 11. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -224,6 +242,11 @@ LOOP_VOCAB_EVERY, LOOP_VOCAB_FEATURES = 12, 600
 RELOC_FRAMES, RELOC_BLACKOUT, MAPIO_FRAMES = 40, range(20, 24), 45
 LAPS_FRAMES, LAPS_REUSE_FROM = 300, 170
 K8_N = 1000  # descriptors a K8 check: a keyframe's worth
+# stereo and RGB-D: tests/test_e2e_stereo.py's and tests/test_e2e_rgbd.py's
+# arc, tests/test_e2e_stereo_loop.py's circuit (LOOP_FRAMES, LOOP_NOISE)
+STEREO_FRAMES, STEREO_DT, STEREO_BASELINE = 40, 0.1, 0.11
+STEREO_CONFIG = dict(n_features=800, kf_max_interval=5)
+RGBD_CONFIG = dict(n_features=800)
 # Hopper's popcount rate: 16 a clock an SM (CUDA C++ Programming Guide's
 # throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 POPC_PER_S = 16 * 132 * 1.98e9
@@ -349,12 +372,13 @@ def _count_syncs(fn) -> list:
     return [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
 
 
-def _ba_problem(seed: int = 0, k: int = BA_K, m: int = BA_M, r: int = BA_R, exact: int = 0):
+def _ba_problem(seed: int = 0, k: int = BA_K, m: int = BA_M, r: int = BA_R, exact: int = 0, bf=None):
     """A local-BA problem as numpy arrays: k keyframes on an arc looking at
     m landmarks, each seen from r of them, 0.5 px noise, 10 % empty slots,
     perturbed start (but for the first `exact` poses, which start at the
-    truth, as a local BA's anchors). Returns (observations, state) as dicts
-    of the interop functions' arguments."""
+    truth, as a local BA's anchors); with `bf`, 60 % of the slots with a
+    stereo match (the right u, 0.5 px noise). Returns (observations, state)
+    as dicts of the interop functions' arguments."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -380,6 +404,10 @@ def _ba_problem(seed: int = 0, k: int = BA_K, m: int = BA_M, r: int = BA_R, exac
         points=pts + rng.normal(0, 0.05, (m, 3)),
     )
     state["r_cw"][:exact], state["t_cw"][:exact] = r_cw[:exact], t_cw[:exact]
+    if bf is not None:
+        obs["ur_valid"] = obs["valid"] & (rng.random((m, r)) < 0.6)
+        ur = 450.0 * pc[..., 0] / pc[..., 2] + 376.0 - bf / pc[..., 2] + rng.normal(0, 0.5, (m, r))
+        obs["ur"] = np.where(obs["ur_valid"], ur, -1.0)
     return obs, state
 
 
@@ -403,40 +431,42 @@ def _graph_check(tag: str, what: str, graph, args) -> dict:
     return res
 
 
-def _graphed_ba_check(cam, dev, tag: str) -> dict:
+def _graphed_ba_check(cam, dev, tag: str, bf=None) -> dict:
     """The local vision BA as MonoSlam runs it (`optim/ba.py::
     make_local_vision_ba`): a window of 10 keyframes and 8 anchors padded to
     the pose bucket 20 (identity poses, fixed, named by no observation), M =
     MonoSlam's max_ba_landmarks, R = MAX_OBS_PER_POINT: the cost falls, the
-    padded slots stay, and `_graph_check`'s replay checks and times."""
+    padded slots stay, and `_graph_check`'s replay checks and times. With
+    `bf`, the stereo flavour StereoSlam runs (its own graph, 3-row
+    residuals where a slot has a stereo match)."""
     import numpy as np
     import torch
 
     from viorb_tpu_torch.interop import ba_observations_from_numpy, vision_ba_state_from_numpy
     from viorb_tpu_torch.mapping.map import MAX_OBS_PER_POINT
     from viorb_tpu_torch.optim.ba import _vision_cost_and_chi2, make_local_vision_ba, pose_bucket
-    from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF
     from viorb_tpu_torch.slam.mono import MonoSlam
 
     k, m = pose_bucket(GRAPH_BA_KFS), inspect.signature(MonoSlam).parameters["max_ba_landmarks"].default
     _check(k == 20 and m == BA_M and GRAPH_BA_R == MAX_OBS_PER_POINT, f"graphed BA shapes K={k} M={m}")
-    obs_np, state_np = _ba_problem(seed=2, k=GRAPH_BA_KFS, m=m, r=GRAPH_BA_R, exact=GRAPH_BA_ANCHORS)
+    obs_np, state_np = _ba_problem(seed=2, k=GRAPH_BA_KFS, m=m, r=GRAPH_BA_R, exact=GRAPH_BA_ANCHORS, bf=bf)
     state_np["r_cw"] = np.concatenate([state_np["r_cw"], np.broadcast_to(np.eye(3), (k - GRAPH_BA_KFS, 3, 3))])
     state_np["t_cw"] = np.concatenate([state_np["t_cw"], np.zeros((k - GRAPH_BA_KFS, 3))])
     fixed = torch.ones(k, dtype=torch.bool, device=dev)
     fixed[GRAPH_BA_ANCHORS:GRAPH_BA_KFS] = False
     state, obs = vision_ba_state_from_numpy(**state_np), ba_observations_from_numpy(**obs_np)
-    graph = make_local_vision_ba(cam)
-    args = (state, *obs[:4], fixed)
+    graph = make_local_vision_ba(cam, bf)
+    args = (state, *obs[:4], fixed) if bf is None else (state, *obs, fixed)
     out, _ = graph(*args)
-    before = float(_vision_cost_and_chi2(state, obs, cam, CHI2_MONO_2DOF)[0])
-    after = float(_vision_cost_and_chi2(out, obs, cam, CHI2_MONO_2DOF)[0])
-    print(f"local vision BA, graphed, K={k} ({GRAPH_BA_KFS - GRAPH_BA_ANCHORS} free + {GRAPH_BA_ANCHORS} anchors + "
+    before = float(_vision_cost_and_chi2(state, obs, cam, obs.chi2_delta2(), bf)[0])
+    after = float(_vision_cost_and_chi2(out, obs, cam, obs.chi2_delta2(), bf)[0])
+    what = "local vision BA" if bf is None else "local stereo BA"
+    print(f"{what}, graphed, K={k} ({GRAPH_BA_KFS - GRAPH_BA_ANCHORS} free + {GRAPH_BA_ANCHORS} anchors + "
           f"{k - GRAPH_BA_KFS} padded) M={m} R={GRAPH_BA_R}, 5 + 5 iterations: cost {before:.1f} -> {after:.1f}")
     _check(after < 0.1 * before and torch.equal(out.r_cw[GRAPH_BA_KFS:], state.r_cw[GRAPH_BA_KFS:])
            and torch.equal(out.t_cw[:GRAPH_BA_ANCHORS], state.t_cw[:GRAPH_BA_ANCHORS]),
            "graphed local BA: the cost must fall and the fixed and padded poses stay")
-    return _graph_check(tag, f"local vision BA K={k} M={m} R={GRAPH_BA_R}", graph, args)
+    return _graph_check(tag, f"{what} K={k} M={m} R={GRAPH_BA_R}", graph, args)
 
 
 def _ba_split(slam, what: str, local_kinds=("local",)) -> str:
@@ -2176,6 +2206,255 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
     return k1_paths, k8_paths, k8
 
 
+def _k9_check(cam, dev, seq, right, tag: str) -> dict:
+    """K9 against its plain version on the card with torch.equal, at the
+    stereo path's shapes: frame 0's pair (the left features' descriptor
+    matches) and a case with keypoints on each image border and unmatched
+    ur0 = -1 rows (flagged and not); its device time beside the plain
+    version's, its bound (the bytes each row reads and writes, the f32
+    operations of its seven SADs) and an empty launch. Returns the kernels
+    line's numbers."""
+    import ctypes
+
+    import torch
+
+    from viorb_tpu_torch.cuda_build import load_library
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.features.extractor import OrbExtractor
+    from viorb_tpu_torch.geometry.camera import undistort_points
+    from viorb_tpu_torch.slam import stereo_cuda
+    from viorb_tpu_torch.slam.kernels import match_stereo, refine_stereo_subpixel
+
+    ex = OrbExtractor(n_features=STEREO_CONFIG["n_features"])
+    img_l, img_r = seq.images[0], right[0]
+    fl, fr = ex.extract(img_l, device=dev), ex.extract(img_r, device=dev)
+    xy_l, xy_r = undistort_points(cam, fl.xy), undistort_points(cam, fr.xy)
+    ur0, matched = match_stereo(xy_l, fl.descriptors_pm1(), fl.valid, fl.level, xy_r, fr.descriptors_pm1(), fr.valid,
+                                fr.level, 0.5, cam.fx * STEREO_BASELINE / 0.1)
+    h, w = img_l.shape
+    k = 16
+    bx = torch.stack([torch.cat([torch.zeros(k), torch.full((k,), w - 1.0), torch.linspace(0, w - 1, 2 * k)]),
+                      torch.cat([torch.linspace(0, h - 1, 2 * k), torch.zeros(k), torch.full((k,), h - 1.0)])], 1)
+    border = (torch.cat([bx, torch.tensor([[100.0, 60.0]]).repeat(8, 1)]).to(dev),
+              torch.cat([(bx[:, 0] - 4.0).clamp(min=0), torch.full((8,), -1.0)]).to(dev),
+              torch.cat([torch.ones(4 * k + 4, dtype=torch.bool), torch.zeros(4, dtype=torch.bool)]).to(dev))
+    cases = {"frame 0's matches": (img_l, img_r, xy_l, ur0, matched), "border rows and ur0 = -1": (img_l, img_r, *border)}
+    for name, args in cases.items():
+        stereo_cuda.LAUNCHES_K9 = 0
+        got = stereo_cuda.refine_stereo_subpixel_cuda(*args)
+        want = refine_stereo_subpixel(*args)
+        torch.cuda.synchronize()
+        _check(got.is_cuda and stereo_cuda.LAUNCHES_K9 == 1, f"K9 on {name}: {stereo_cuda.LAUNCHES_K9} launches")
+        _check(torch.equal(got, want), f"K9 != plain on {name}: max |d| {float((got - want).abs().max())}")
+        print(f"K9 == plain (torch.equal) on {name}: {got.shape[0]} rows, {int(args[4].sum())} matched")
+    n = xy_l.shape[0]
+    args = cases["frame 0's matches"]
+    ms = _event_ms(lambda: stereo_cuda.refine_stereo_subpixel_cuda(*args), reps=500, device_only=True)
+    plain_ms = _event_ms(lambda: refine_stereo_subpixel(*args), reps=5, device_only=True)
+    empty = load_library(fast_cuda.LIB_NAME).viorb_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_ms = _event_ms(lambda: empty(stream), reps=1000, device_only=True)
+    # each row reads its 11x11 patch and 11x17 strip, its xy, ur0 and flag,
+    # and writes ur; each of 7 SADs takes a subtraction, an abs and an add a pixel
+    n_bytes, n_ops = n * ((121 + 187) * 4 + 8 + 4 + 1 + 4), n * 7 * 121 * 3
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    print(f"{tag} K9 stereo SAD, {n} rows of a {w}x{h} pair, device time: kernel {ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}: {n_bytes} B, {n_ops} ops), "
+          f"empty launch {floor_ms * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, empty_ms=floor_ms, rows=n)
+
+
+def _stereo_phase(cam, dev, tag: str) -> dict:
+    """Stereo and RGB-D SLAM on the card, lock-step (module docstring,
+    phase 10): K9 held to its plain version; tests/test_e2e_stereo.py's
+    two contracts (the stereo depth of frame 0; the 40-frame arc, a warm-up
+    run and a measured one), tests/test_e2e_rgbd.py's and
+    tests/test_e2e_stereo_loop.py's (the 100-frame noisy circuit, the
+    vocabulary trained as that test trains it, the loop closed with the
+    scale pinned); each run's K1 launches = frames + right extractions, K9
+    launches = right extractions, every local BA a replay of its graph (the
+    stereo ones under "stereo_local"), frame ms by kind. Returns the
+    kernels line's K1, K8 and K9 launches by path and K9's numbers."""
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.bow import descend_cuda, train_vocabulary
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.features.extractor import OrbExtractor
+    from viorb_tpu_torch.geometry.camera import undistort_points
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.slam import stereo_cuda
+    from viorb_tpu_torch.slam.kernels import match_stereo
+    from viorb_tpu_torch.slam.mono import MonoSlam
+    from viorb_tpu_torch.slam.rgbd import RgbdSlam
+    from viorb_tpu_torch.slam.stereo import StereoSlam
+    from viorb_tpu_torch.slam.tracking_loop import make_pipeline_track_core
+
+    t_phase = time.perf_counter()
+    seq, right = synthetic.make_stereo_sequence(STEREO_FRAMES, cam=cam, dt=STEREO_DT, baseline=STEREO_BASELINE,
+                                                device=dev)
+    k9 = _k9_check(cam, dev, seq, right, tag)
+    k1, k8, k9_paths = {}, {}, {}
+
+    def drive(label, slam, frames, step):
+        """Every frame through `slam` with the K1, K8 and K9 counters set to
+        0 just before; checks K1 = frames + right extractions and K9 = right
+        extractions, except in a warm-up run (a core's first call warms up
+        eagerly and captures) and in MonoSlam's run for comparison. Per
+        frame (info, host ms, kind)."""
+        core = make_pipeline_track_core(cam, slam.extractor)
+        core.reset_counts()
+        fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+        descend_cuda.LAUNCHES_K8 = descend_cuda.LAUNCHES_K8_GLOBAL = 0
+        stereo_cuda.LAUNCHES_K9 = 0
+        rows = []
+        for i in frames:
+            kfs = slam.map._next_kf
+            t0 = time.perf_counter()
+            info = step(i)  # ends in a pull: the host clock is honest
+            ms = (time.perf_counter() - t0) * 1e3
+            kind = "init" if kfs == 0 else "keyframe" if slam.map._next_kf > kfs else "steady"
+            rows.append((info, ms, kind))
+        right_x = getattr(slam, "right_extractions", 0)
+        n = core.launches()["CELL_LAUNCHES"] + fast_cuda.CELL_LAUNCHES
+        print(f"{label}: K1 launches {n} ({core.launches()['CELL_LAUNCHES']} in {core.replays} graph replays + "
+              f"{fast_cuda.CELL_LAUNCHES} eager) for {len(frames)} frames and {right_x} right extractions; "
+              f"K9 launches {stereo_cuda.LAUNCHES_K9}; K8 launches {descend_cuda.LAUNCHES_K8}; "
+              + _ba_split(slam, label, ("stereo_local",) if isinstance(slam, StereoSlam) else ("local",)))
+        by_kind = {}
+        for _, ms, kind in rows:
+            by_kind.setdefault(kind, []).append(ms)
+        print(f"{tag} {label}, host ms a frame by kind: " + ", ".join(
+            f"{kind} x{len(v)} median {statistics.median(v):.2f} max {max(v):.2f}" for kind, v in by_kind.items()))
+        if label.endswith("warm-up") or label.startswith("MonoSlam"):
+            return [r[0] for r in rows]
+        k1[label], k8[label], k9_paths[label] = n, descend_cuda.LAUNCHES_K8, stereo_cuda.LAUNCHES_K9
+        _check(n == len(frames) + right_x and fast_cuda.LAUNCHES == 0,
+               f"{label}: K1 launches {n} for {len(frames)} frames + {right_x} right extractions")
+        _check(stereo_cuda.LAUNCHES_K9 == right_x, f"{label}: K9 launches {stereo_cuda.LAUNCHES_K9}, {right_x} pairs")
+        _check(descend_cuda.LAUNCHES_K8_GLOBAL == 0, f"{label}: K8 took its global-histogram path")
+        return [r[0] for r in rows]
+
+    def metric(slam, sequence):
+        traj = slam.trajectory_tum()
+        ate = ate_rmse(traj[:, 0], traj[:, 1:4], sequence.timestamps, sequence.c_w, with_scale=False)
+        span = np.linalg.norm(np.ptp(traj[:, 1:4], axis=0)) / np.linalg.norm(np.ptp(sequence.c_w, axis=0))
+        _check(np.isfinite(traj).all() and traj.shape[1] == 8, "trajectory not finite or malformed")
+        return traj, ate, span
+
+    # tests/test_e2e_stereo.py: the stereo depth of frame 0
+    slam = StereoSlam(cam, baseline=STEREO_BASELINE, device=dev, **STEREO_CONFIG)
+    fr = slam._make_stereo_frame(seq.images[0], right[0], 0.0)
+    ok = fr.depth > 0
+    z_gt = synthetic.depth_at(cam, seq.r_wc[0], seq.c_w[0], synthetic.default_room(0), fr.xy[ok])
+    rel = float(np.median(np.abs(fr.depth[ok] - z_gt) / z_gt))
+    print(f"{tag} StereoSlam frame 0: {int(ok.sum())} stereo matches, median relative depth error {rel:.4f}")
+    _check(ok.sum() > 200 and rel < 0.03, f"stereo depth on frame 0: {int(ok.sum())} matches, median error {rel:.4f}")
+
+    # tests/test_e2e_stereo.py: the 40-frame arc, warm-up (the stereo BA's
+    # graphs are captured at first use) and measured
+    for label in ("StereoSlam warm-up", "StereoSlam"):
+        slam = StereoSlam(cam, baseline=STEREO_BASELINE, device=dev, **STEREO_CONFIG)
+        infos = drive(label, slam, range(STEREO_FRAMES),
+                      lambda i: slam.process_frame_stereo(seq.images[i], right[i], float(seq.timestamps[i])))
+    n_ok = sum(r["state"] == "OK" for r in infos)
+    traj, ate, span = metric(slam, seq)
+    steady = traj[:, 0] >= 2.0
+    ate_ss = ate_rmse(traj[steady, 0], traj[steady, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+    print(f"{tag} StereoSlam lock-step, {STEREO_FRAMES} rendered {cam.width}x{cam.height} pairs at dt={STEREO_DT}: "
+          f"{n_ok} frames OK, final {infos[-1]}, metric ATE {ate:.4f} m, from 2 s {ate_ss:.4f} m, scale ratio "
+          f"{span:.4f}; stereo matches at the keyframes {[r['n_stereo'] for r in infos if r['n_stereo']]}")
+    _check(infos[-1]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and ate < 0.09 and ate_ss < 0.02
+           and 0.97 < span < 1.03, f"StereoSlam misses tests/test_e2e_stereo.py's contract: {n_ok} OK, "
+           f"ATE {ate:.4f} / {ate_ss:.4f} m, ratio {span:.4f}")
+
+    # what a keyframe adds in stereo: the pair's match (right extraction,
+    # undistortion, match_stereo, K9, one pull) on the arc's last frame,
+    # and its stages alone (CUDA events)
+    fr = slam._make_frame(seq.images[-1], 0.0)
+    img_l, img_r = seq.images[-1], right[-1]
+    attach = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        slam._attach_stereo(fr, img_l, img_r)  # ends in a pull
+        attach.append((time.perf_counter() - t0) * 1e3)
+    fr_r = slam.extractor.extract(img_r, device=dev)
+    xy_r = undistort_points(cam, fr_r.xy)
+    stage_ms = {
+        "right extraction": _event_ms(lambda: slam.extractor.extract(img_r, device=dev), reps=10),
+        "match_stereo": _event_ms(lambda: match_stereo(
+            fr.xy_dev, fr.desc_pm1, fr.valid_dev, fr.level_dev, xy_r, fr_r.descriptors_pm1(), fr_r.valid,
+            fr_r.level, slam.min_disparity, slam.bf / 0.1), reps=10),
+    }
+    print(f"{tag} StereoSlam, a keyframe's pair match (_attach_stereo: right extraction, undistortion, "
+          f"match_stereo, K9, one pull): {statistics.median(attach[1:]):.2f} ms median of 10 (host clock); "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()) + " (CUDA events)")
+    # a steady frame against MonoSlam's on the same left images, same configuration
+    mono = MonoSlam(cam, device=dev, **STEREO_CONFIG)
+    drive("MonoSlam on the left images", mono, range(STEREO_FRAMES),
+          lambda i: mono.process_frame(seq.images[i], float(seq.timestamps[i])))
+
+    # the stereo local BA as StereoSlam replays it, graphed against eager
+    stereo_ba = _graphed_ba_check(cam, dev, tag, bf=cam.fx * STEREO_BASELINE)
+
+    # tests/test_e2e_rgbd.py
+    rseq, depths = synthetic.make_sequence(STEREO_FRAMES, cam=cam, dt=STEREO_DT, device=dev, with_depth=True)
+    slam = RgbdSlam(cam, device=dev, **RGBD_CONFIG)
+    infos = drive("RgbdSlam", slam, range(STEREO_FRAMES),
+                  lambda i: slam.process_frame_rgbd(rseq.images[i], depths[i], float(rseq.timestamps[i])))
+    n_ok = sum(r["state"] == "OK" for r in infos)
+    _, ate, _ = metric(slam, rseq)
+    print(f"{tag} RgbdSlam lock-step, {STEREO_FRAMES} frames: frame 0 {infos[0]['state']}, {n_ok} frames OK, "
+          f"final {infos[-1]}, metric ATE {ate:.4f} m")
+    _check(infos[0]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and infos[-1]["n_points"] > 300 and ate < 0.05,
+           f"RgbdSlam misses tests/test_e2e_rgbd.py's contract: {n_ok} OK, final {infos[-1]}, ATE {ate:.4f} m")
+
+    # tests/test_e2e_stereo_loop.py: the noisy circuit, its vocabulary
+    lseq, lright = synthetic.make_stereo_sequence(LOOP_FRAMES, cam=cam, dt=LOOP_DT, baseline=STEREO_BASELINE,
+                                                  kind="circuit", noise_std=LOOP_NOISE, device=dev)
+    ex = OrbExtractor(n_features=LOOP_VOCAB_FEATURES)
+    descs = []
+    for i in range(0, LOOP_FRAMES, LOOP_VOCAB_EVERY):
+        f = ex.extract(lseq.images[i], device=dev)
+        descs.append(f.desc01[f.valid].cpu().numpy())
+    vocab = train_vocabulary(np.concatenate(descs), k=8, depth=3)
+    slam = StereoSlam(cam, baseline=STEREO_BASELINE, device=dev, vocabulary=vocab, enable_loop_closing=True,
+                      **STEREO_CONFIG)
+    _check(slam.loop_closer.fix_scale, "StereoSlam must pin the loop Sim3's scale")
+    lc, stages = slam.loop_closer, {}
+
+    def timed(name, fn):  # the stage's host ms, the device drained before and after
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stages.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return wrapped
+
+    for name in ("compute_sim3", "correct"):
+        setattr(lc, name, timed(name, getattr(lc, name)))
+    lc.gba_fn = timed("post-loop GBA", lc.gba_fn)
+    infos = drive("StereoSlam loop", slam, range(LOOP_FRAMES),
+                  lambda i: slam.process_frame_stereo(lseq.images[i], lright[i], float(lseq.timestamps[i])))
+    _, ate, span = metric(slam, lseq)
+    print(f"{tag} StereoSlam with loop closing, {LOOP_FRAMES}-frame noisy circuit: "
+          f"{sum(r['state'] == 'OK' for r in infos)} frames OK, {slam.loop_closer.loops_closed} loops closed "
+          f"(fix_scale), metric ATE {ate:.4f} m, scale ratio {span:.4f}; {int(slam.map.pt_active.sum())} points; "
+          f"loop stages, host ms: " + ", ".join(
+              f"{k} x{len(v)} max {max(v):.1f}" for k, v in stages.items()))
+    _check(slam.loop_closer.loops_closed >= 1 and ate < 0.05 and 0.97 < span < 1.03,
+           f"StereoSlam misses tests/test_e2e_stereo_loop.py's contract: {slam.loop_closer.loops_closed} loops, "
+           f"ATE {ate:.4f} m, ratio {span:.4f}")
+    _check_main_thread_only("the stereo and RGB-D phase")
+    print(f"{tag} stereo and RGB-D phase: {time.perf_counter() - t_phase:.1f} s of host time")
+    return dict(k1=k1, k8=k8, k9=k9, k9_paths=k9_paths, stereo_ba=stereo_ba)
+
+
 def _kernels_per_call(fn) -> int:
     """CUDA kernels (and device copies) one call of fn() launches, by the
     profiler; 0 when the profiler records no device activity."""
@@ -2248,6 +2527,7 @@ def main() -> int:
     from viorb_tpu_torch.optim.ba import _vision_cost_and_chi2, vision_ba
     from viorb_tpu_torch.optim.pose_only import PoseObs, pose_optimization_tcw
     from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF
+    from viorb_tpu_torch.slam import stereo_cuda
     from viorb_tpu_torch.slam.kernels import match_by_projection, triangulate_between
     from viorb_tpu_torch.slam.tracking_loop import (
         DeviceMap,
@@ -2272,9 +2552,9 @@ def main() -> int:
 
     # ---- 2. build: one nvcc a source, all started together ----------------
     t_build = time.perf_counter()
-    load_libraries([fast_cuda.LIB_NAME, descend_cuda.LIB_NAME])
+    load_libraries([fast_cuda.LIB_NAME, descend_cuda.LIB_NAME, stereo_cuda.LIB_NAME])
     print(f"build, in parallel: {time.perf_counter() - t_build:.2f} s")
-    for lib in (fast_cuda.LIB_NAME, descend_cuda.LIB_NAME):
+    for lib in (fast_cuda.LIB_NAME, descend_cuda.LIB_NAME, stereo_cuda.LIB_NAME):
         build_s, build_log = build_info(lib)
         print(f"build {lib}: {build_s:.2f} s")
         for line in build_log.splitlines():
@@ -2385,7 +2665,8 @@ def main() -> int:
         captured = core.captured()
         print(f"{name}: warm-up + capture + first replay {time.perf_counter() - t_cap:.2f} s, "
               f"kernel launches in the graph {captured}")
-        _check(captured == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0, "LAUNCHES_K8_GLOBAL": 0}],
+        _check(captured == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0, "LAUNCHES_K8_GLOBAL": 0,
+                             "LAUNCHES_K9": 0}],
                f"{name}: the captured graph must hold exactly one fused K1 launch, got {captured}")
 
     tracked, eager_inputs, graph_launches = {}, {}, {}
@@ -2404,7 +2685,8 @@ def main() -> int:
         launches = core.launches()
         graph_launches[name] = launches["CELL_LAUNCHES"]
         _check(
-            core.replays == N_FRAMES - 1 and launches == {"LAUNCHES": 0, "CELL_LAUNCHES": N_FRAMES - 1, "LAUNCHES_K8": 0, "LAUNCHES_K8_GLOBAL": 0}
+            core.replays == N_FRAMES - 1 and launches == {"LAUNCHES": 0, "CELL_LAUNCHES": N_FRAMES - 1, "LAUNCHES_K8": 0,
+                                                          "LAUNCHES_K8_GLOBAL": 0, "LAUNCHES_K9": 0}
             and fast_cuda.LAUNCHES == 0 and fast_cuda.CELL_LAUNCHES == 0,
             f"{name}: {core.replays} replays made {launches} launches through the graph and "
             f"{fast_cuda.CELL_LAUNCHES} + {fast_cuda.LAUNCHES} through the eager wrappers; expected "
@@ -2524,7 +2806,8 @@ def main() -> int:
           f"during warm-up + capture + replay; the capture holds {busy_core.captured()}, the wrapper counted "
           f"{fast_cuda.CELL_LAUNCHES} = {made[0]} + {own} warm-up calls")
     _check(made_during > 0, "the second thread made no launch while the graph was captured")
-    _check(busy_core.captured() == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0, "LAUNCHES_K8_GLOBAL": 0}] and busy_core.replays == 1,
+    _check(busy_core.captured() == [{"LAUNCHES": 0, "CELL_LAUNCHES": 1, "LAUNCHES_K8": 0, "LAUNCHES_K8_GLOBAL": 0,
+                                     "LAUNCHES_K9": 0}] and busy_core.replays == 1,
            f"a capture beside a busy thread must hold its own launch alone, got {busy_core.captured()}")
     _check(own == WARMUP_CALLS and fast_cuda.LAUNCHES == 0,
            f"launch counts beside a capture: {fast_cuda.CELL_LAUNCHES} counted, {made[0]} made by the thread")
@@ -2700,10 +2983,17 @@ def main() -> int:
     loop_k1, loop_k8, k8 = _loop_phase(cam, dev, tag)
     marks.append(("9", time.perf_counter()))
     threaded_launches.update(loop_k1)
+
+    # ---- 10. stereo and RGB-D ---------------------------------------------
+    stereo = _stereo_phase(cam, dev, tag)
+    marks.append(("10 stereo and RGB-D", time.perf_counter()))
+    threaded_launches.update(stereo["k1"])
+    loop_k8["StereoSlam loop"] = stereo["k8"]["StereoSlam loop"]
+    print(f"K9 launches by path: {json.dumps(stereo['k9_paths'])}")
     print(f"K1 launches by path: {json.dumps({'tracking cores': cell_launches, 'MonoSlam': slam_launches, **threaded_launches})}")
     print(f"K8 launches by path: {json.dumps(loop_k8)}")
 
-    # ---- 10. times -------------------------------------------------------
+    # ---- 11. times -------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -2863,7 +3153,7 @@ def main() -> int:
     print(f"{tag} two_view_init, {tv_x1.shape[0]} match slots, 256 hypotheses: {init_ms:.3f} ms a call")
 
     _check_main_thread_only("the whole run")
-    marks.append(("10", time.perf_counter()))
+    marks.append(("11", time.perf_counter()))
     print(f"{tag} chip_smoke.py's host seconds by phase: " + ", ".join(
         f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
         + f"; {marks[-1][1] - marks[0][1]:.1f} s in all")
@@ -2891,7 +3181,9 @@ def main() -> int:
                     f"CUDA graph a frame, over {N_FRAMES - 1} frames each (launches in the capture x replays); "
                     f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each, async and "
                     f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames, the loop "
-                    f"phase's MonoSlam and MonoViSlam runs (graph replays + eager extractions)",
+                    f"phase's MonoSlam and MonoViSlam runs, StereoSlam (with the right images' extractions) and "
+                    f"RgbdSlam over {STEREO_FRAMES} frames, StereoSlam with loop closing over {LOOP_FRAMES} "
+                    f"(graph replays + eager extractions)",
             "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
             "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
             "max_abs_err": cells_err,
@@ -2921,6 +3213,24 @@ def main() -> int:
             "device_ops_per_call": k8["device_ops"],
             "global_path_ms": k8["global_ms"],
             "empty_launch_ms": floor_ms,
+        },
+        {
+            "name": "stereo_sad (K9, stereo sub-pixel refinement: 11x11 SAD over +-3 px, parabola)",
+            "route": "cuda",
+            "source": "viorb_tpu_torch/csrc/stereo_sad.cu",
+            "replaces": "viorb_tpu/slam/kernels.py:324",
+            "path": f"StereoSlam._attach_stereo at the initialization and each keyframe of lock-step StereoSlam "
+                    f"over the {STEREO_FRAMES}-frame stereo arc (launches_by_path: the stereo phase's runs)",
+            "launches": stereo["k9_paths"]["StereoSlam"],
+            "launches_by_path": stereo["k9_paths"],
+            "max_abs_err": 0.0,
+            "ms": stereo["k9"]["ms"],
+            "plain_ms": stereo["k9"]["plain_ms"],
+            "bound_ms": stereo["k9"]["bound_ms"],
+            "bound_by": stereo["k9"]["bound_by"],
+            "library_ms": None,
+            "rows": stereo["k9"]["rows"],
+            "empty_launch_ms": stereo["k9"]["empty_ms"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
 """Make the goldens the port is held to: `tests/torch_mono_golden.npz`
 (lock-step and streaming MonoSlam), `tests/torch_vi_golden.npz`
 (lock-step MonoViSlam), `tests/torch_front_golden.npz` (the tracking step
-and cores), `tests/torch_optim_golden.npz` (the VI optimizers and init)
-and `tests/torch_loop_golden.npz` (loop closing).
+and cores), `tests/torch_optim_golden.npz` (the VI optimizers and init),
+`tests/torch_loop_golden.npz` (loop closing) and
+`tests/torch_stereo_golden.npz` (lock-step StereoSlam and RgbdSlam).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py [SET ...]           # write
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check [SET ...]   # recompute, compare
 
-SET is `mono`, `vi`, `front`, `optim` or `loop` (default: all five). The
-mono set is described first; the others at `VI_CONFIGS`, `FRONT_DOC`,
-`OPTIM_DOC` and `LOOP_DOC`.
+SET is `mono`, `vi`, `front`, `optim`, `loop` or `stereo` (default: all
+six). The mono set is described first; the others at `VI_CONFIGS`,
+`FRONT_DOC`, `OPTIM_DOC`, `LOOP_DOC` and `STEREO_DOC`.
 
 The JAX package's `MonoSlam` (the reference) runs, lock-step, on the frames
 the PORT's renderer makes on the CPU (`viorb_tpu_torch.io.synthetic.
@@ -886,9 +887,120 @@ def make_loop() -> dict:
     return out
 
 
+STEREO_GOLDEN = os.path.join(HERE, "torch_stereo_golden.npz")
+STEREO_DOC = """The reference's StereoSlam ("stereo") and RgbdSlam ("rgbd"), lock-step, on
+the port's rendered frames at tests/torch_port_scene.py's half size (the
+376x240 camera, the first 14 frames of the arc at dt=0.2 s of "half" above,
+f32 frames):
+the stereo run on `make_stereo_sequence`'s pair (baseline 0.11 m), the RGB-D
+run on `make_sequence(with_depth=True)`'s images and depth, each with 300
+features, a keyframe at least every 5 frames, 1024 local-map slots and 512
+BA landmarks. Each records per frame the state, tracked count, keyframe and
+point counts (and `n_stereo`, the stereo run's matched features), the TUM
+trajectory and its metric ATE (SE3 alignment, no scale). Neither pipeline
+draws a RANSAC hypothesis while tracking holds, so the port's run is held
+to the reference's frame by frame.
+Besides, `fix_*`, the reference's fixed-scale Sim3 solvers (`fix_scale=True`)
+on the mono loop run's recorded problems in tests/torch_loop_golden.npz:
+`fix_ransac_*`, `sim3_ransac` (inlier threshold 0.1, 20 inliers, as the
+loop closer calls it) with the key PRNGKey(FIX_KEY) and the 128 minimal
+sets it draws; `fix_refine_*`, `optimize_sim3_reproj` from that RANSAC's
+result; `fix_circle_*`, `optimize_sim3_graph` on `circle_graph_problem()`
+started at unit scales."""
+FIX_KEY = 11
+STEREO_CONFIG = dict(CONFIGS["half"], n_frames=14, baseline=0.11)
+STEREO_RUNS = ("stereo", "rgbd")
+
+
+def stereo_inputs(name: str, device="cpu"):
+    """(port camera, the port's rendered sequence of STEREO_CONFIG, the
+    second input of each frame): for "stereo" `make_stereo_sequence`'s
+    right images, for "rgbd" `make_sequence(with_depth=True)`'s depth
+    images of the same left frames."""
+    from viorb_tpu_torch.geometry.camera import PinholeCamera
+    from viorb_tpu_torch.io import synthetic
+
+    c = STEREO_CONFIG
+    cam = PinholeCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    if name == "stereo":
+        return (cam, *synthetic.make_stereo_sequence(c["n_frames"], cam=cam, dt=c["dt"], baseline=c["baseline"],
+                                                     device=device))
+    return (cam, *synthetic.make_sequence(c["n_frames"], cam=cam, dt=c["dt"], device=device, with_depth=True))
+
+
+def run_reference_stereo(name: str) -> dict:
+    from viorb_tpu.eval.ate import ate_rmse
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.slam.rgbd import RgbdSlam as RefRgbdSlam
+    from viorb_tpu.slam.stereo import StereoSlam as RefStereoSlam
+
+    c = STEREO_CONFIG
+    cam, seq, second = stereo_inputs(name)
+    ref_cam = RefCamera(**cam._asdict())
+    keys = {k: c[k] for k in SLAM_KEYS}
+    if name == "stereo":
+        slam = RefStereoSlam(ref_cam, baseline=c["baseline"], **keys)
+        step = slam.process_frame_stereo
+    else:
+        slam = RefRgbdSlam(ref_cam, **keys)
+        step = slam.process_frame_rgbd
+    rows = []
+    for image, other, ts in zip(seq.images, second, seq.timestamps):
+        info = step(image.numpy(), other.numpy(), float(ts))
+        rows.append((STATES.index(info["state"]), info["n_tracked"], info["n_kfs"], info["n_points"],
+                     info.get("n_stereo", 0)))
+    rows = np.asarray(rows, np.int64)
+    traj = slam.trajectory_tum()
+    return {
+        "state": rows[:, 0], "n_tracked": rows[:, 1], "n_kfs": rows[:, 2], "n_points": rows[:, 3],
+        "n_stereo": rows[:, 4], "traj": traj,
+        "ate": np.float64(ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)),
+        "config": np.array(sorted(c.items()), dtype=str),
+    }
+
+
+def run_reference_fix_scale() -> dict:
+    """The reference's fixed-scale Sim3 RANSAC, refine and essential graph
+    (STEREO_DOC's `fix_*`)."""
+    import jax
+    import jax.numpy as jnp
+    from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
+    from viorb_tpu.optim.pose_graph import Sim3Graph, optimize_sim3_graph
+    from viorb_tpu.optim.sim3_refine import optimize_sim3_reproj
+    from viorb_tpu.solvers.sim3_solver import sim3_ransac
+
+    g = load(LOOP_GOLDEN)
+    c = LOOP_CONFIG
+    cam = RefCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    key = jax.random.PRNGKey(FIX_KEY)
+    p1, p2, valid = (jnp.asarray(g[f"mono_ransac_{k}"]) for k in ("p1", "p2", "valid"))
+    rs = sim3_ransac(p1, p2, valid, key, inlier_th=0.1, min_inliers=20, fix_scale=True)
+    out = {"fix_ransac_idx": _sim3_samples(g["mono_ransac_valid"], key)}
+    out.update({f"fix_ransac_{k}": np.asarray(v) for k, v in rs._asdict().items()})
+    names = ("x1", "uv1", "x2", "uv2", "valid")
+    ref = optimize_sim3_reproj(rs.s, rs.r, rs.t, *(jnp.asarray(g["mono_refine_" + k]) for k in names), cam,
+                               fix_scale=True)
+    out.update({f"fix_refine_{k}": np.asarray(v) for k, v in zip(("s", "r", "t", "inliers"), ref)})
+    p = circle_graph_problem()
+    graph = Sim3Graph(*(jnp.asarray(p[f]) for f in ("edge_i", "edge_j", "meas_s", "meas_r", "meas_t", "weight")))
+    circ = optimize_sim3_graph(jnp.ones_like(jnp.asarray(p["s"])), jnp.asarray(p["r"]), jnp.asarray(p["t"]), graph,
+                               jnp.asarray(p["fixed"]), iters=CIRCLE_ITERS, fix_scale=True)
+    out.update({f"fix_circle_{f}": np.asarray(v) for f, v in zip("srt", circ)})
+    return out
+
+
+def make_stereo() -> dict:
+    out = {"reference_commit": np.array(reference_commit())}
+    for name in STEREO_RUNS:
+        for k, v in run_reference_stereo(name).items():
+            out[f"{name}_{k}"] = np.asarray(v)
+    out.update(run_reference_fix_scale())
+    return out
+
+
 SETS = {"mono": (GOLDEN, lambda: make_mono()), "vi": (VI_GOLDEN, lambda: make_vi()),
         "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim()),
-        "loop": (LOOP_GOLDEN, lambda: make_loop())}
+        "loop": (LOOP_GOLDEN, lambda: make_loop()), "stereo": (STEREO_GOLDEN, lambda: make_stereo())}
 
 
 def spread(data: dict) -> list:
@@ -954,6 +1066,11 @@ def main(argv) -> int:
                 print(f"{run}: first loop at keyframe {int(data[run + '_kf'])} -> {int(data[run + '_cand'])}, "
                       f"{int(data[run + '_loops_closed'])} loops, S12 scale {float(data[run + '_sim3_s']):.4f}, "
                       f"confirm {int(data[run + '_sim3_n'])}, ATE {float(data[run + '_ate']):.4f} m")
+        if name == "stereo":
+            for run in STEREO_RUNS:
+                print(f"{run}: {int((data[run + '_state'] == 1).sum())} frames OK, "
+                      f"{int(data[run + '_n_kfs'][-1])} keyframes, {int(data[run + '_n_points'][-1])} points, "
+                      f"metric ATE {float(data[run + '_ate']):.4f} m")
         if name == "vi":
             for cfg in VI_CONFIGS:
                 print(f"{cfg}: VI init at frame {int(data[cfg + '_init_frame'])}, "

@@ -19,7 +19,6 @@ One test per file: see tests/test_torch_fast.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from viorb_tpu.geometry.camera import PinholeCamera as RefCamera
@@ -171,12 +170,16 @@ def test_vision_ba_matches_reference():
     for got, want in zip(again, ref_again):
         assert torch.equal(got, want)
 
-    # stereo observations are not ported yet, and say so
-    stereo = obs._replace(ur=obs.uv[..., 0], ur_valid=obs.valid)
-    for call in (lambda: ba.vision_ba(state, stereo, cam, t_fixed), lambda: ba._vision_blocks(state, stereo, cam),
-                 stereo.chi2_delta2):
-        with pytest.raises(NotImplementedError):
-            call()
+    # stereo observations with no stereo match solve the monocular problem
+    # (tests/test_torch_stereo_ba.py holds the stereo BA to the reference)
+    stereo = obs._replace(ur=torch.full_like(obs.uv[..., 0], -1.0), ur_valid=torch.zeros_like(obs.valid))
+    assert (stereo.chi2_delta2() == obs.chi2_delta2()).all()
+    r3, Jp3, Jl3 = ba._vision_blocks(state, stereo, cam, 450.0 * 0.11)
+    assert torch.equal(r3[..., :2], r) and torch.equal(Jp3[..., :2, :], Jp) and not r3[..., 2].any()
+    mono_st, _ = ba.vision_ba(state, obs, cam, t_fixed, iters=3)
+    stereo_st, _ = ba.vision_ba(state, stereo, cam, t_fixed, iters=3, bf=450.0 * 0.11)
+    for got, want in zip(stereo_st, mono_st):
+        _rel(got.numpy(), want.numpy(), 1e-5, "stereo without matches")
 
 
 def rng_weights(np_obs):

@@ -110,6 +110,11 @@ def project_jacobian(cam: PinholeCamera, pc: torch.Tensor) -> torch.Tensor:
     return torch.stack([cam.fx * J[..., 0, :], cam.fy * J[..., 1, :]], dim=-2)
 
 
+def depth_mask(pc: torch.Tensor, min_depth: float = 0.05) -> torch.Tensor:
+    """Camera-frame points (...,3) in front of the camera: z > min_depth."""
+    return pc[..., 2] > min_depth
+
+
 def pixel_to_normalized(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
     """Pixels (...,2) -> distorted normalized coords."""
     return torch.stack(

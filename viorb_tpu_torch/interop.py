@@ -3,7 +3,8 @@
 The system has no weights: its state is the map, the local map, the carry,
 the camera, the extractor configuration and, for bundle adjustment, the
 keyframe poses, landmarks and observation grid, and for the VI path the
-NavStates, IMU sample batches and preintegration chains. These functions take that
+NavStates, IMU sample batches and preintegration chains, and for stereo and
+RGB-D the right u and depth of a frame's features. These functions take that
 state as plain numpy arrays and numbers — for instance the JAX package's
 arrays after `np.asarray` — so the port can start from exactly the state
 another implementation holds. `device=None` puts the state on the card
@@ -23,8 +24,10 @@ from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.imu.navstate import NavState
 from viorb_tpu_torch.imu.preintegration import PreintegratedImu
 from viorb_tpu_torch.imu.types import ImuBatch
+from viorb_tpu_torch.mapping.map import KeyFrameData
 from viorb_tpu_torch.mapping.serialize import map_store_from_arrays  # noqa: F401  (the map's state)
 from viorb_tpu_torch.optim.ba import BAObservations, ImuChain, ViBAState, VisionBAState
+from viorb_tpu_torch.slam.mono import FrameRecord
 from viorb_tpu_torch.slam.tracking_loop import DeviceMap, TrackCarry
 
 
@@ -101,15 +104,53 @@ def local_map_upload_from_numpy(packed, desc_bits, valid, device=None):
     )
 
 
-def ba_observations_from_numpy(kf_idx, uv, inv_sigma2, valid, device=None) -> BAObservations:
-    """The landmark-major (M,R) observation grid of a monocular bundle
-    adjustment."""
+def ba_observations_from_numpy(kf_idx, uv, inv_sigma2, valid, ur=None, ur_valid=None, device=None) -> BAObservations:
+    """The landmark-major (M,R) observation grid of a bundle adjustment;
+    with `ur` (M,R) and `ur_valid` (M,R) bool, a stereo one (the vision
+    BA's `bf` then applies)."""
     device = resolve_device(device)
     return BAObservations(
         kf_idx=_i64(kf_idx, device),
         uv=_f32(uv, device),
         inv_sigma2=_f32(inv_sigma2, device),
         valid=_bool(valid, device),
+        ur=None if ur is None else _f32(ur, device),
+        ur_valid=None if ur_valid is None else _bool(ur_valid, device),
+    )
+
+
+def frame_from_numpy(timestamp, xy, level, angle, desc01, valid, r_cw=None, t_cw=None, ur=None, depth=None,
+                     device=None) -> FrameRecord:
+    """A tracked frame of the SLAM pipelines (`slam/mono.py::FrameRecord`)
+    from its features as arrays: undistorted xy (N,2), level, angle,
+    desc01 (N,256) {0,1}, valid; its pose where it has one; and, for
+    stereo or RGB-D, the right u and depth of each feature (-1 where there
+    is none). The device payload (descriptors as +-1, xy, level, valid) is
+    on `device`."""
+    device = resolve_device(device)
+    feats = features_from_numpy(xy, np.zeros(len(xy)), angle, level, desc01, valid, device=device)
+
+    def host(x, dtype):
+        return None if x is None else np.array(x, dtype)
+
+    return FrameRecord(
+        timestamp=float(timestamp), xy=host(xy, np.float32), level=host(level, np.int32),
+        angle=host(angle, np.float32), desc01=host(desc01, np.uint8), valid=host(valid, bool),
+        desc_pm1=feats.descriptors_pm1(), r_cw=host(r_cw, np.float32), t_cw=host(t_cw, np.float32),
+        point_idx=np.full(len(xy), -1, np.int32), desc01_dev=feats.desc01, xy_dev=feats.xy,
+        level_dev=feats.level, valid_dev=feats.valid, ur=host(ur, np.float32), depth=host(depth, np.float32),
+    )
+
+
+def keyframe_from_numpy(timestamp, r_cw, t_cw, xy, level, angle, desc01, valid, ur=None) -> KeyFrameData:
+    """A keyframe of the host map (`mapping/map.py::KeyFrameData`, id
+    unassigned, no point bound) from arrays, with the right u of each
+    feature for a stereo map (-1 where there is none)."""
+    return KeyFrameData(
+        kf_id=-1, timestamp=float(timestamp), r_cw=np.array(r_cw, np.float32), t_cw=np.array(t_cw, np.float32),
+        xy=np.array(xy, np.float32), level=np.array(level, np.int32), angle=np.array(angle, np.float32),
+        desc01=np.array(desc01, np.uint8), valid=np.array(valid, bool), point_idx=np.full(len(xy), -1, np.int32),
+        ur=None if ur is None else np.array(ur, np.float32),
     )
 
 

@@ -1,8 +1,9 @@
 """Synthetic textured-room renderer with exact ground truth (port of
 viorb_tpu/io/synthetic.py: the room, open or closed, the 'arc', 'circuit',
-'laps' and 'spin' trajectories, the frame renderer, `make_sequence` with
-its seeded pixel noise, the analytic IMU of every kind), plus the tracking
-benchmark's map lifted from frame 0.
+'laps' and 'spin' trajectories, the frame renderer with its z-depth,
+`depth_at`, `make_sequence` with its seeded pixel noise and depth images,
+the rectified stereo pair `make_stereo_sequence`, the analytic IMU of every
+kind), plus the tracking benchmark's map lifted from frame 0.
 
 The room and the trajectory stay numpy, seeded as in the reference, so
 both packages see the same world. `render_frame` is torch and runs on the
@@ -142,9 +143,11 @@ def render_frame(
     r_wc: torch.Tensor,
     c_w: torch.Tensor,
     planes: PlaneArrays,
-) -> torch.Tensor:
+    with_depth: bool = False,
+):
     """Render an (H,W) f32 image by ray casting on the planes' device;
-    pixels that hit no plane read 127."""
+    pixels that hit no plane read 127. With `with_depth`: (image, the
+    (H,W) f32 z-depth of each pixel's hit, 0 where there is none)."""
     dev = planes.textures.device
     r_wc = torch.as_tensor(r_wc, dtype=torch.float32, device=dev)
     c_w = torch.as_tensor(c_w, dtype=torch.float32, device=dev)
@@ -183,7 +186,37 @@ def render_frame(
     best = torch.argmin(ts, dim=0)
     img = torch.gather(val, 0, best[None])[0]
     hit_any = torch.gather(ok, 0, best[None])[0]
-    return torch.where(hit_any, img, torch.full_like(img, 127.0))
+    img = torch.where(hit_any, img, torch.full_like(img, 127.0))
+    if not with_depth:
+        return img
+    depth = torch.gather(ts, 0, best[None])[0]
+    return img, torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+
+
+def depth_at(
+    cam: PinholeCamera,
+    r_wc: np.ndarray,
+    c_w: np.ndarray,
+    planes: List[Plane],
+    uv: np.ndarray,  # (N,2) pixels
+) -> np.ndarray:
+    """Ground-truth depth (camera z) at the given pixels, inf where the ray
+    hits no plane (numpy, as the reference computes it)."""
+    d_cam = np.stack(
+        [(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy, np.ones(len(uv), np.float32)], axis=-1
+    )
+    d_w = d_cam @ r_wc.T
+    best_t = np.full(len(uv), np.inf, np.float32)
+    for pl in planes:
+        n = np.cross(pl.ax_u, pl.ax_v)
+        n = n / np.linalg.norm(n)
+        denom = d_w @ n
+        denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        t = ((pl.origin - c_w) @ n) / denom
+        rel = c_w + t[:, None] * d_w - pl.origin
+        ok = (t > 0.05) & (t < best_t) & (np.abs(rel @ pl.ax_u) < pl.size_u / 2) & (np.abs(rel @ pl.ax_v) < pl.size_v / 2)
+        best_t = np.where(ok, t, best_t)
+    return best_t  # the distance along a ray whose camera z is 1: the depth
 
 
 def to_uint8(image: torch.Tensor) -> torch.Tensor:
@@ -353,25 +386,60 @@ def make_sequence(
     device=None,
     kind: str = "arc",
     noise_std: float = 0.0,
-) -> SyntheticSequence:
+    with_depth: bool = False,
+):
     """The reference's rendered sequence of trajectory `kind`, rendered on
     `device` (the card unless the caller names another), with no disk
     cache; the frames are f32, as the reference's. The circuit and the laps
     render in the closed room. noise_std > 0 adds the reference's seeded
     per-frame Gaussian pixel noise (numpy, `seed + 991`), clipped to
-    0..255. Depth is not ported yet; the IMU is `make_imu`."""
+    0..255. with_depth: (sequence, [(H,W) f32 z-depth images on the same
+    device, 0 where a ray hits nothing]) for RGB-D, the depth noise-free.
+    The IMU is `make_imu`."""
     cam = cam or PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
     r_wc, c_w = make_trajectory(n_frames, dt, kind=kind)
     planes = stack_planes(default_room(seed, closed=kind in ("circuit", "laps")), device=device)
-    images = [render_frame(cam, r_wc[i], c_w[i], planes) for i in range(n_frames)]
-    if noise_std > 0.0:
-        nrng = np.random.default_rng(seed + 991)
-        images = [
-            (im + torch.from_numpy(nrng.normal(0.0, noise_std, tuple(im.shape)).astype(np.float32)).to(im.device))
-            .clamp(0.0, 255.0)
-            for im in images
-        ]
-    return SyntheticSequence(images, r_wc, c_w, np.arange(n_frames) * dt, cam)
+    rendered = [render_frame(cam, r_wc[i], c_w[i], planes, with_depth=with_depth) for i in range(n_frames)]
+    images = [r[0] for r in rendered] if with_depth else rendered
+    seq = SyntheticSequence(_noisy(images, noise_std, seed + 991), r_wc, c_w, np.arange(n_frames) * dt, cam)
+    return (seq, [r[1] for r in rendered]) if with_depth else seq
+
+
+def _noisy(images: List[torch.Tensor], noise_std: float, seed: int) -> List[torch.Tensor]:
+    """The reference's seeded per-frame Gaussian pixel noise (numpy
+    generator `seed`), clipped to 0..255; the images as they are for
+    noise_std 0."""
+    if noise_std <= 0.0:
+        return images
+    nrng = np.random.default_rng(seed)
+    return [
+        (im + torch.from_numpy(nrng.normal(0.0, noise_std, tuple(im.shape)).astype(np.float32)).to(im.device))
+        .clamp(0.0, 255.0)
+        for im in images
+    ]
+
+
+def make_stereo_sequence(
+    n_frames: int = 60,
+    cam: Optional[PinholeCamera] = None,
+    seed: int = 0,
+    dt: float = 0.05,
+    baseline: float = 0.11,
+    device=None,
+    kind: str = "arc",
+    noise_std: float = 0.0,
+) -> Tuple[SyntheticSequence, List[torch.Tensor]]:
+    """The reference's rectified stereo pair: (the LEFT camera's sequence,
+    as `make_sequence` renders it, [right images]). The right camera sits
+    at c + r_wc @ [baseline, 0, 0] with the left one's orientation; its
+    images get their own seeded noise (`seed + 1723`). Rendered on
+    `device`, no disk cache."""
+    cam = cam or PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0, width=752, height=480)
+    seq = make_sequence(n_frames, cam=cam, seed=seed, dt=dt, device=device, kind=kind, noise_std=noise_std)
+    c_r = seq.c_w + np.einsum("tij,j->ti", seq.r_wc, np.array([baseline, 0, 0], np.float32))
+    planes = stack_planes(default_room(seed, closed=kind in ("circuit", "laps")), device=device)
+    right = [render_frame(cam, seq.r_wc[i], c_r[i], planes) for i in range(n_frames)]
+    return seq, _noisy(right, noise_std, seed + 1723)
 
 
 def lift_features_to_map(

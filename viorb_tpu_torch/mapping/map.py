@@ -469,6 +469,27 @@ class MapStore:
         valid[:n] = valid_p
         return kf_list, pts, kf_idx, uv, inv_sigma2, valid
 
+    def build_stereo_ur_grid(self, pt_ids: np.ndarray, kf_list: List[int], max_landmarks: int):
+        """The right-u observation grid slot-aligned with build_ba_problem's
+        (the stereo BA residual's): (ur (M,R) f32, -1 where none, ur_valid
+        (M,R) bool), from each keyframe's `ur`."""
+        m, r = max_landmarks, MAX_OBS_PER_POINT
+        ur = np.full((m, r), -1.0, np.float32)
+        urv = np.zeros((m, r), bool)
+        if len(pt_ids) == 0:
+            return ur, urv
+        kfm = self.obs_kf[pt_ids]
+        fm = self.obs_feat[pt_ids]
+        for k in kf_list:
+            kf = self.keyframes.get(k)
+            if kf is None or kf.ur is None:
+                continue
+            rows, slots = np.nonzero(kfm == k)
+            vals = kf.ur[fm[rows, slots]]
+            ur[rows, slots] = vals
+            urv[rows, slots] = vals >= 0
+        return ur, urv
+
 
 def update_point_stats_numpy(m: MapStore, pt_ids: np.ndarray) -> None:
     """`MapStore.update_point_stats` as a numpy loop, the reference's

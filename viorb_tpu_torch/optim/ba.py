@@ -1,7 +1,7 @@
 """Batched Levenberg-Marquardt bundle adjustment with an explicit Schur
 complement over the landmarks (port of viorb_tpu/optim/ba.py: the vision
-BA, the visual-inertial BA and the VI BA with a free gravity direction; the
-stereo residual is not ported yet).
+BA, monocular or stereo, the visual-inertial BA and the VI BA with a free
+gravity direction).
 
   * observations live in a LANDMARK-MAJOR grid (M landmarks x R observation
     slots, validity-masked): every per-landmark quantity (Hll, its inverse,
@@ -10,7 +10,10 @@ stereo residual is not ported yet).
     camera matrix; windows are small (10-20 keyframes), so the reduced
     solve is a tiny Cholesky;
   * Jacobians of the reprojection rows are analytic (optim/reprojection.py),
-    where the reference differentiates the residual with `jax.jacfwd`; the
+    where the reference differentiates the residual with `jax.jacfwd`: 2
+    rows an observation, or 3 in a stereo problem (the right u; zero where
+    an observation has no stereo match), with chi2 gates of 5.991 / 7.815
+    by observation; the
     few IMU rows (one per keyframe edge) are differentiated with
     `torch.func.jacfwd`, vmapped over the edges, as the reference does;
   * the VI BAs add the preintegration and bias random-walk edges of an
@@ -38,7 +41,7 @@ one compiled program a shape: `make_local_vision_ba` / `make_local_vi_ba`
 wrap the two-phase solves in a `cuda_graph.GraphedFunction`, and a caller
 pads the pose block to `pose_bucket(K)` (4, then 20, then multiples of 8),
 as the reference pads it, so a window plus its anchors (at most 20
-keyframes) replays one of two graphs. A padded slot is a fixed identity
+keyframes) replays one of two graphs (a stereo pipeline has its own graphs, keyed by `bf`). A padded slot is a fixed identity
 pose that no observation names (and, in the VI BA, no valid edge): the
 reduced system gives it a unit row, and the solve of the other slots is the
 same as without it.
@@ -62,11 +65,10 @@ from viorb_tpu_torch.optim.imu_factors import bias_walk_residual, preint_residua
 from viorb_tpu_torch.optim.reprojection import (
     Extrinsics,
     reproj_residual_jacobians_ba,
+    reproj_residual_jacobians_ba_stereo,
     reproj_residual_jacobians_navstate,
 )
-from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF, CHI2_VI_9DOF, huber_weight
-
-_STEREO = "stereo observations (obs.ur) are not ported yet: the vision BA is monocular"
+from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF, CHI2_STEREO_3DOF, CHI2_VI_9DOF, huber_weight
 
 GRAPHED_MAX_POSES = 20  # the largest pose bucket of a local BA: windows and anchors replay a graph up to it
 _GRAPHS: dict = {}  # the process-wide local-BA graphs, by kind and camera
@@ -89,8 +91,9 @@ class BAObservations(NamedTuple):
 
     kf_idx: (M,R) int64 observing keyframe slot; uv: (M,R,2) undistorted
     pixels; inv_sigma2: (M,R) per-observation information scale (1/sigma^2
-    of the pyramid level); valid: (M,R) bool. ur / ur_valid are the
-    reference's stereo fields: anything but None raises."""
+    of the pyramid level); valid: (M,R) bool. Stereo (both set together):
+    ur (M,R) f32 right-image u and ur_valid (M,R) bool; an observation with
+    ur_valid gets the 3-row stereo residual (the vision BA's `bf`)."""
 
     kf_idx: torch.Tensor
     uv: torch.Tensor
@@ -99,11 +102,13 @@ class BAObservations(NamedTuple):
     ur: Optional[torch.Tensor] = None
     ur_valid: Optional[torch.Tensor] = None
 
-    def chi2_delta2(self) -> float:
-        """Per-observation outlier threshold: 5.991 (mono, 2 dof)."""
-        if self.ur is not None or self.ur_valid is not None:
-            raise NotImplementedError(_STEREO)
-        return CHI2_MONO_2DOF
+    def chi2_delta2(self):
+        """Per-observation outlier threshold: 5.991 (mono, 2 dof), or an
+        (M,R) tensor of 7.815 (stereo, 3 dof) where ur_valid, else 5.991."""
+        if self.ur_valid is None:
+            return CHI2_MONO_2DOF
+        return torch.where(self.ur_valid, torch.full_like(self.ur, CHI2_STEREO_3DOF),
+                           torch.full_like(self.ur, CHI2_MONO_2DOF))
 
     @property
     def m(self) -> int:
@@ -120,14 +125,14 @@ class VisionBAState(NamedTuple):
     points: torch.Tensor  # (M,3)
 
 
-def _vision_blocks(state: VisionBAState, obs: BAObservations, cam: PinholeCamera):
-    """Residuals and Jacobians on the (M,R) grid for Tcw poses: r (M,R,2),
-    Jp (M,R,2,6), Jl (M,R,2,3)."""
-    if obs.ur is not None:
-        raise NotImplementedError(_STEREO)
-    return reproj_residual_jacobians_ba(
-        state.r_cw[obs.kf_idx], state.t_cw[obs.kf_idx], state.points[:, None, :], obs.uv, cam
-    )
+def _vision_blocks(state: VisionBAState, obs: BAObservations, cam: PinholeCamera, bf: Optional[float] = None):
+    """Residuals and Jacobians on the (M,R) grid for Tcw poses: r (M,R,C),
+    Jp (M,R,C,6), Jl (M,R,C,3), C = 2, or 3 with stereo observations (bf =
+    fx * baseline; None reads 0, as in the reference)."""
+    r_cw, t_cw, pts = state.r_cw[obs.kf_idx], state.t_cw[obs.kf_idx], state.points[:, None, :]
+    if obs.ur is None:
+        return reproj_residual_jacobians_ba(r_cw, t_cw, pts, obs.uv, cam)
+    return reproj_residual_jacobians_ba_stereo(r_cw, t_cw, pts, obs.uv, obs.ur, obs.ur_valid, cam, bf or 0.0)
 
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -245,8 +250,8 @@ def _back_substitute(Hll_inv, b_l, U, dx_pose, obs: BAObservations, d: int):
     return torch.einsum("mij,mj->mi", Hll_inv, rhs)
 
 
-def _vision_cost_and_chi2(state, obs: BAObservations, cam, delta2):
-    r, _, _ = _vision_blocks(state, obs, cam)
+def _vision_cost_and_chi2(state, obs: BAObservations, cam, delta2, bf: Optional[float] = None):
+    r, _, _ = _vision_blocks(state, obs, cam, bf)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     w = huber_weight(chi2, delta2)
     cost = torch.sum(torch.where(obs.valid, chi2 * w, torch.zeros_like(chi2)))
@@ -271,9 +276,11 @@ def vision_ba(
     fixed_kf: torch.Tensor,  # (K,) bool
     iters: int = 10,
     fixed_lm: Optional[torch.Tensor] = None,  # (M,) bool
+    bf: Optional[float] = None,  # fx * baseline, for stereo observations
 ) -> Tuple[VisionBAState, torch.Tensor]:
     """Levenberg-Marquardt vision bundle adjustment over K keyframe poses
-    and M landmarks. Returns (state, final per-observation chi2 (M,R))."""
+    and M landmarks. Returns (state, final per-observation chi2 (M,R)).
+    With stereo observations (obs.ur set), pass bf = fx * baseline."""
     k = state.r_cw.shape[0]
     d = 6
     delta2 = obs.chi2_delta2()
@@ -281,7 +288,7 @@ def vision_ba(
     fixed_kd = torch.repeat_interleave(fixed_kf, d)
     lam = torch.full((), 1e-4, dtype=state.points.dtype, device=state.points.device)
     for _ in range(iters):
-        r, Jp, Jl = _vision_blocks(state, obs, cam)
+        r, Jp, Jl = _vision_blocks(state, obs, cam, bf)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         hw = huber_weight(chi2, delta2)
         w = obs.inv_sigma2 * hw * obs.valid.to(r.dtype)
@@ -290,11 +297,11 @@ def vision_ba(
         dx = _solve_reduced(S, b, fixed_kd, lam)
         dl = _back_substitute(Hll_inv, b_l, U, dx, obs, d)
         cand = _apply_vision_update(state, dx, dl, k, fixed_lm)
-        cost1, _ = _vision_cost_and_chi2(cand, obs, cam, delta2)
+        cost1, _ = _vision_cost_and_chi2(cand, obs, cam, delta2, bf)
         accept = cost1 < cost0
         state = VisionBAState(*[torch.where(accept, a, b_) for a, b_ in zip(cand, state)])
         lam = torch.where(accept, (lam * 0.5).clamp(min=1e-6), (lam * 4.0).clamp(max=1e4))
-    _, chi2 = _vision_cost_and_chi2(state, obs, cam, delta2)
+    _, chi2 = _vision_cost_and_chi2(state, obs, cam, delta2, bf)
     return state, chi2
 
 
@@ -306,29 +313,39 @@ def vision_ba_two_phase(
     iters1: int = 5,
     iters2: int = 5,
     fixed_lm: Optional[torch.Tensor] = None,
+    bf: Optional[float] = None,
 ) -> Tuple[VisionBAState, BAObservations]:
-    """The two-round scheme: optimize, drop chi2 outliers at 1.5 x 5.991,
-    optimize again, gate at 5.991. Returns the state and the observations
-    with the surviving `valid` mask."""
+    """The two-round scheme: optimize, drop chi2 outliers at 1.5 x the gate
+    (5.991 mono / 7.815 stereo), optimize again, gate at 1 x. Returns the
+    state and the observations with the surviving `valid` mask."""
     delta2 = obs.chi2_delta2()
-    state, chi2 = vision_ba(state, obs, cam, fixed_kf, iters1, fixed_lm)
+    state, chi2 = vision_ba(state, obs, cam, fixed_kf, iters1, fixed_lm, bf)
     obs = obs._replace(valid=obs.valid & (chi2 <= delta2 * 1.5))
-    state, chi2 = vision_ba(state, obs, cam, fixed_kf, iters2, fixed_lm)
+    state, chi2 = vision_ba(state, obs, cam, fixed_kf, iters2, fixed_lm, bf)
     obs = obs._replace(valid=obs.valid & (chi2 <= delta2))
     return state, obs
 
 
-def make_local_vision_ba(cam: PinholeCamera) -> GraphedFunction:
+def make_local_vision_ba(cam: PinholeCamera, bf: Optional[float] = None) -> GraphedFunction:
     """The local vision BA (`vision_ba_two_phase` at its 5 + 5 iterations) as
     a `GraphedFunction` of (state, kf_idx, uv, inv_sigma2, valid, fixed_kf)
     -> (state, the surviving `valid`): one graph per (K, M, R) on the card,
-    the eager solve on the CPU. Process-wide, one per camera."""
+    the eager solve on the CPU. Process-wide, one per camera. With `bf`
+    (fx * baseline) the stereo flavour, of (state, kf_idx, uv, inv_sigma2,
+    valid, ur, ur_valid, fixed_kf): one per camera and bf."""
+    if bf is None:
+        def local_vision_ba(state, kf_idx, uv, inv_sigma2, valid, fixed_kf):
+            out, obs = vision_ba_two_phase(state, BAObservations(kf_idx, uv, inv_sigma2, valid), cam, fixed_kf)
+            return out, obs.valid
 
-    def local_vision_ba(state, kf_idx, uv, inv_sigma2, valid, fixed_kf):
-        out, obs = vision_ba_two_phase(state, BAObservations(kf_idx, uv, inv_sigma2, valid), cam, fixed_kf)
+        return _GRAPHS.setdefault(("vision", cam), GraphedFunction(local_vision_ba))
+
+    def local_stereo_ba(state, kf_idx, uv, inv_sigma2, valid, ur, ur_valid, fixed_kf):
+        obs = BAObservations(kf_idx, uv, inv_sigma2, valid, ur, ur_valid)
+        out, obs = vision_ba_two_phase(state, obs, cam, fixed_kf, bf=bf)
         return out, obs.valid
 
-    return _GRAPHS.setdefault(("vision", cam), GraphedFunction(local_vision_ba))
+    return _GRAPHS.setdefault(("stereo", cam, float(bf)), GraphedFunction(local_stereo_ba))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Sim3 pose-graph (essential graph) optimization (port of
 viorb_tpu/optim/pose_graph.py; the reference ORB-SLAM's
 Optimizer::OptimizeEssentialGraph: a Sim3 vertex per keyframe, edges from
-the spanning tree, strong covisibility and the loop; mono scale free).
+the spanning tree, strong covisibility and the loop; mono scale free, or
+every scale pinned with `fix_scale` for stereo and RGB-D).
 
 The residual of edge i -> j is e = Log(S_ji_meas * S_i * S_j^-1) (7-dim),
 and a left increment moves a vertex, S <- Exp(d) S. With R = S_ji_meas
@@ -87,11 +88,18 @@ def optimize_sim3_graph(
     graph: Sim3Graph,
     fixed: torch.Tensor,  # (K,) bool
     iters: int = 20,
+    fix_scale: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`iters` damped Gauss-Newton steps with the `fixed` vertices held.
+    `fix_scale` pins every vertex's sigma dof too (an SE3 graph inside the
+    Sim3 one: the reference's essential graph for stereo and RGB-D), so the
+    scales stay as given."""
     k, d = s.shape[0], 7
     dev = s.device
     ei, ej = graph.edge_i, graph.edge_j
     fixed_kd = fixed.repeat_interleave(d)
+    if fix_scale:
+        fixed_kd = fixed_kd | (torch.arange(k * d, device=dev) % d == 6)
     free = ~fixed_kd
     free_f = free.to(torch.float32)
     pin = torch.where(fixed_kd, 1.0, 1e-8).diag()

@@ -9,9 +9,12 @@ viorb_tpu/optim/reprojection.py), with their analytic Jacobians.
     d pc / d p_w = Rbc^T R^T; the velocity columns are zero, as in the
     reference's PVR edge.
 
-Each is chained through d project / d pc. The reference differentiates the
-residuals with `jax.jacfwd` at delta = 0; tests/test_torch_pose.py and
-tests/test_torch_vi_optim.py hold the analytic forms to it.
+Each is chained through d project / d pc. The stereo Tcw residual adds a
+third row u_l - bf / z - u_r (the reference's EdgeStereoSE3ProjectXYZ,
+with z clamped at 1e-6), d / d pc = d u_l / d pc + (0, 0, bf / z^2). The
+reference differentiates the residuals with `jax.jacfwd` at delta = 0;
+tests/test_torch_pose.py, tests/test_torch_vi_optim.py and
+tests/test_torch_stereo_ba.py hold the analytic forms to it.
 """
 
 from __future__ import annotations
@@ -86,6 +89,37 @@ def reproj_residual_jacobians_ba(
     pc = (r_cw @ p_w[..., None])[..., 0] + t_cw
     J_proj, J_pose = _pose_jacobian(cam, pc)
     return project(cam, pc) - uv, J_pose, J_proj @ r_cw
+
+
+def reproj_residual_jacobians_ba_stereo(
+    r_cw: torch.Tensor,  # (...,3,3) pose of each observation's keyframe
+    t_cw: torch.Tensor,  # (...,3)
+    p_w: torch.Tensor,  # (...,3) landmark of each observation
+    uv: torch.Tensor,  # (...,2) left observation
+    ur: torch.Tensor,  # (...) right u
+    ur_valid: torch.Tensor,  # (...) bool: the observation has a stereo match
+    cam: PinholeCamera,
+    bf: float,  # fx * baseline
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`reproj_residual_jacobians_ba` with the stereo row: the residual
+    (...,3) (u_l, v_l, u_l - bf / max(z, 1e-6) - u_r) and its Jacobians
+    (...,3,6) and (...,3,3) at zero increment; the third row is zero, with
+    its Jacobian, where `ur_valid` is False."""
+    pc = (r_cw @ p_w[..., None])[..., 0] + t_cw
+    J_proj = project_jacobian(cam, pc)
+    uv_hat = project(cam, pc)
+    z = pc[..., 2]
+    zc = z.clamp(min=1e-6)
+    mask = ur_valid.to(pc.dtype)
+    r3 = (uv_hat[..., 0] - bf / zc - ur) * mask
+    dz = torch.where(z > 1e-6, bf / (zc * zc), torch.zeros_like(z))  # d(-bf / z) / dz
+    J3 = J_proj[..., 0, :] + torch.stack([torch.zeros_like(z), torch.zeros_like(z), dz], dim=-1)
+    J_pc = torch.cat([J_proj, (J3 * mask[..., None])[..., None, :]], dim=-2)  # (...,3,3)
+    d_pc = torch.cat(
+        [torch.eye(3, dtype=pc.dtype, device=pc.device).expand(*pc.shape[:-1], 3, 3), -hat(pc)], dim=-1
+    )
+    r = torch.cat([uv_hat - uv, r3[..., None]], dim=-1)
+    return r, J_pc @ d_pc, J_pc @ r_cw
 
 
 def reproj_residual_navstate(

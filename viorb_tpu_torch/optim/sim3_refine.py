@@ -11,6 +11,8 @@ candidate's. LM on the 7-DoF left increment; the Jacobian is
 (1, 7) broadcast over the points (each point's residual depends on its
 own copy of the increment only, so the derivative by the shared one is
 its own). Each iteration accepts or rejects on the card: no host sync.
+With `fix_scale` the sigma row and column of the normal equations are
+pinned (a unit diagonal, a zero gradient), so s stays 1 exactly.
 """
 
 from __future__ import annotations
@@ -58,9 +60,10 @@ def optimize_sim3_reproj(
     valid: torch.Tensor,  # (N,) bool
     cam: PinholeCamera,
     iters: int = 10,
+    fix_scale: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(s, r, t, inlier mask) after `iters` LM steps; inliers gated at chi2
-    9.21."""
+    9.21. `fix_scale` keeps s as given (1 for stereo and RGB-D loops)."""
     dev = x1.device
     s = s12.reshape(1).to(torch.float32)
     r = r12[None].to(torch.float32)
@@ -68,6 +71,10 @@ def optimize_sim3_reproj(
     w = valid.to(torch.float32)[:, None]
     z7 = torch.zeros(1, 7, dtype=torch.float32, device=dev)
     eye7 = torch.eye(7, dtype=torch.float32, device=dev)
+    free = torch.ones(7, dtype=torch.float32, device=dev)
+    if fix_scale:
+        free[6] = 0.0
+    pin = torch.diag(1.0 - free)
 
     def cost_and_chi2(s, r, t):
         rf, ri = _residuals(z7, s, r, t, x1, uv1, x2, uv2, cam)
@@ -86,6 +93,9 @@ def optimize_sim3_reproj(
         H = J.T @ J
         g = -(J.T @ rv)
         H = H + lam * torch.diag(H.diagonal().clamp(min=1e-6))
+        if fix_scale:
+            H = H * free[:, None] * free[None, :] + pin
+            g = g * free
         dx = torch.linalg.solve_ex(H + 1e-8 * eye7, g[:, None])[0][:, 0]
         s_n, r_n, t_n = _increment(dx[None], s, r, t)
         c0, _ = cost_and_chi2(s, r, t)

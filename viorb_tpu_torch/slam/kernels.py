@@ -1,12 +1,13 @@
 """Device functions of the SLAM front end and of local mapping (port of
-viorb_tpu/slam/kernels.py, all but its stereo functions): projection
-matching for tracking and for fusion, epipolar matching and triangulation
-between keyframes, the local-map unpack.
+viorb_tpu/slam/kernels.py): projection matching for tracking and for
+fusion, epipolar matching and triangulation between keyframes, the
+local-map unpack, rectified stereo matching and its sub-pixel refinement.
 
 Each is a fixed-shape batched program: project every map point, gate it
 (frustum, view angle, scale range), gate every point-feature pair (search
-window or epipolar line), take one Hamming matmul, and keep mutual best
-matches.
+window, epipolar line or scan line), take one Hamming matmul, and keep
+mutual best matches. `refine_stereo_subpixel` is the plain version of the
+hand-written kernel K9 (`slam/stereo_cuda.py`), which the card runs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from viorb_tpu_torch.features.matching import (
     MatchResult,
@@ -283,3 +285,105 @@ def triangulate_between(
         & (cosp < 0.9998)
     )
     return idx, X, good
+
+
+def match_stereo(
+    xy_l: torch.Tensor,  # (Nl,2) left keypoints (undistorted, rectified)
+    desc_l: torch.Tensor,  # (Nl,256) {-1,+1}, 0 on invalid rows
+    valid_l: torch.Tensor,
+    level_l: torch.Tensor,  # (Nl,)
+    xy_r: torch.Tensor,  # (Nr,2) right keypoints
+    desc_r: torch.Tensor,
+    valid_r: torch.Tensor,
+    level_r: torch.Tensor,
+    min_disp: float,
+    max_disp: float,
+    max_dist: float = 50.0,
+):
+    """Rectified stereo matching: one masked Hamming matmul over all left x
+    right pairs, gated to the same scan line (a row tolerance of 2 x 1.2^level
+    of the left keypoint), a disparity range and a pyramid-level difference
+    of at most 1; ratio 0.9, mutual best. Returns (ur (Nl,) f32, the right
+    u of each left feature's match or -1, matched (Nl,) bool)."""
+    row_tol = 2.0 * torch.pow(1.2, level_l.to(torch.float32))
+    dv = (xy_l[:, None, 1] - xy_r[None, :, 1]).abs()
+    disp = xy_l[:, None, 0] - xy_r[None, :, 0]
+    dlev = (level_l[:, None] - level_r[None, :]).abs()
+    gate = (
+        valid_gate(valid_l, valid_r)
+        & (dv <= row_tol[:, None])
+        & (disp >= min_disp)
+        & (disp <= max_disp)
+        & (dlev <= 1)
+    )
+    res = match_with_mask(hamming_matrix(desc_l, desc_r), gate, max_dist=max_dist, ratio=0.9, mutual=True)
+    matched = res.idx >= 0
+    ur = torch.where(matched, xy_r[res.idx.clamp(min=0), 0], torch.full_like(xy_l[:, 0], -1.0))
+    return ur, matched
+
+
+SUBPIX_HALF = 5  # an 11x11 SAD window
+SUBPIX_SEARCH = 3  # +-3 px around the descriptor match
+
+
+def subpixel_windows(img_l, img_r, xy_l, ur0):
+    """Each keypoint's 11x11 left patch (N,11,11) and 11x17 right strip
+    (N,11,17), cut from the images padded by edge replication (pad 9) at
+    the starts `jax.lax.dynamic_slice` takes: a negative start counts from
+    the end of the padded axis, then the start is clamped so that the window
+    stays inside (an unmatched ur0 = -1 lands on the pad). Coordinates round
+    half to even."""
+    h, s = SUBPIX_HALF, SUBPIX_SEARCH
+    win, pad = 2 * h + 1, h + s + 1
+    pl = F.pad(img_l[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    pr = F.pad(img_r[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    hp, wp = pl.shape
+    dev = img_l.device
+
+    def start(x, lo, size, n):  # x rounded + lo: the window's start on an axis of n
+        i = torch.round(x).to(torch.int64) + lo
+        return torch.where(i < 0, i + n, i).clamp(0, n - size)
+
+    y0 = start(xy_l[:, 1], pad - h, win, hp)
+    xl0 = start(xy_l[:, 0], pad - h, win, wp)
+    xr0 = start(ur0, pad - h - s, win + 2 * s, wp)
+    rows = (y0[:, None] + torch.arange(win, device=dev))[:, :, None]
+    patch_l = pl[rows, (xl0[:, None] + torch.arange(win, device=dev))[:, None, :]]
+    strip_r = pr[rows, (xr0[:, None] + torch.arange(win + 2 * s, device=dev))[:, None, :]]
+    return patch_l, strip_r
+
+
+def refine_stereo_subpixel(
+    img_l: torch.Tensor,  # (H,W) f32 left image (rectified)
+    img_r: torch.Tensor,  # (H,W) f32 right image
+    xy_l: torch.Tensor,  # (N,2) left keypoints
+    ur0: torch.Tensor,  # (N,) right u of the descriptor match
+    matched: torch.Tensor,  # (N,) bool
+) -> torch.Tensor:
+    """Sub-pixel right u (N,) f32, -1 where unmatched: the SAD of the 11x11
+    left patch against the right strip at 7 shifts (+-3 px around the
+    rounded match), the first smallest, and a parabola through it and its
+    neighbours when it is interior (the fraction gated on |denominator| >
+    1e-6, clipped to +-1). The plain version of K9 (`slam/stereo_cuda.py`),
+    equal to it bit for bit on the card: each SAD is ONE running f32 sum over
+    the window in row-major order, as the kernel adds (the reference lets
+    XLA pick the order)."""
+    h, s = SUBPIX_HALF, SUBPIX_SEARCH
+    win = 2 * h + 1
+    patch_l, strip_r = subpixel_windows(img_l, img_r, xy_l, ur0)
+    diff = torch.stack([(patch_l - strip_r[:, :, d : d + win]).abs() for d in range(2 * s + 1)], 1)
+    diff = diff.reshape(diff.shape[0], 2 * s + 1, win * win)
+    sads = torch.zeros_like(diff[:, :, 0])
+    for i in range(win * win):
+        sads = sads + diff[:, :, i]
+    best = torch.argmin(sads, dim=1)  # the first smallest
+    interior = (best > 0) & (best < 2 * s)
+    bi = best.clamp(1, 2 * s - 1)[:, None]
+    s0 = torch.gather(sads, 1, bi)[:, 0]
+    sm = torch.gather(sads, 1, bi - 1)[:, 0]
+    sp = torch.gather(sads, 1, bi + 1)[:, 0]
+    denom = sm - 2.0 * s0 + sp
+    frac = torch.where(denom.abs() > 1e-6, 0.5 * (sm - sp) / denom.clamp(min=1e-6), torch.zeros_like(denom))
+    frac = frac.clamp(-1.0, 1.0)
+    off = torch.where(interior, (bi[:, 0] - s).to(torch.float32) + frac, torch.zeros_like(frac))
+    return torch.where(matched, torch.round(ur0) + off, torch.full_like(ur0, -1.0))

@@ -17,6 +17,11 @@ descriptor matching, the Sim3 RANSAC, its reprojection refine and the
 essential graph. The RANSAC draws from a `torch.Generator` seeded 7 on the
 loop closer's device, where the reference splits `PRNGKey(7)`.
 
+With `fix_scale` (stereo and RGB-D: their maps are metric, the reference
+Sim3Solver's bFixScale) the RANSAC, its refine and the essential graph all
+hold s = 1, and the 0.5 < s < 2 gate, which only a free scale needs, is
+skipped.
+
 Not copied from the reference as written: its O(K^2) Python loop that
 builds the essential graph's edges one `jnp` call at a time, and its Python
 loop that moves the map points one at a time. Both are array operations
@@ -59,6 +64,7 @@ class LoopCloser:
         min_confirm_matches: int = 40,
         device=None,
         lock=None,
+        fix_scale: bool = False,
     ):
         self.map = map_store
         self.vocab = vocab
@@ -72,6 +78,7 @@ class LoopCloser:
         self.cam = cam  # enables the reprojection refine and the projection confirm
         self.min_confirm_matches = min_confirm_matches
         self.lock = lock if lock is not None else threading.RLock()
+        self.fix_scale = fix_scale  # s = 1 in every Sim3 of a closure (module docstring)
         # no detection for 10 keyframes after a closure (the reference's
         # mLastLoopKFid + 10 guard)
         self.loop_cooldown = 10
@@ -200,11 +207,12 @@ class LoopCloser:
         p2[:nn] = pc2[:nn]
         v[:nn] = True
         p1_d, p2_d, v_d = self._up(p1), self._up(p2), self._up(v)
-        out = sim3_ransac(p1_d, p2_d, v_d, self.generator, inlier_th=0.1, min_inliers=self.min_matches)
+        out = sim3_ransac(p1_d, p2_d, v_d, self.generator, inlier_th=0.1, min_inliers=self.min_matches,
+                          fix_scale=self.fix_scale)
         success, s12, r12, t12, ransac_inl = (x.cpu().numpy() for x in out)
         # mono scale drift within one loop stays far from 2x: an extreme
         # scale is a degenerate fit (coplanar or clustered pairs)
-        if not bool(success) or not 0.5 < float(s12) < 2.0:
+        if not bool(success) or not (self.fix_scale or 0.5 < float(s12) < 2.0):
             return None
         cur_pts = snap["pidx1"][m1[:nn]]
         loop_pts = snap["pidx2"][m2[:nn]]
@@ -217,7 +225,7 @@ class LoopCloser:
         uv1[:nn] = snap["xy1"][m1[:nn]]
         uv2[:nn] = snap["xy2"][m2[:nn]]
         refined = optimize_sim3_reproj(out.s, out.r, out.t, p1_d, self._up(uv1), p2_d, self._up(uv2), v_d,
-                                       self.cam)
+                                       self.cam, fix_scale=self.fix_scale)
         s12, r12, t12, inl = (x.cpu().numpy() for x in refined)
         if int(inl.sum()) < self.min_matches:
             return None
@@ -332,7 +340,7 @@ class LoopCloser:
         fixed = np.zeros(k, bool)
         fixed[il] = True
         s_o, r_o, t_o = (x.cpu().numpy() for x in optimize_sim3_graph(
-            s_init, r_init, t_init, graph, self._up(fixed), iters=40))
+            s_init, r_init, t_init, graph, self._up(fixed), iters=40, fix_scale=self.fix_scale))
 
         with self.lock:
             # every active point follows its first-observation keyframe (else

@@ -153,6 +153,8 @@ class FrameRecord:
     # recorded the frame: async mode re-bases the frame on its keyframe's
     # later pose (MonoSlam._rebase_last_frame)
     ref: Optional[Tuple[int, np.ndarray, np.ndarray, int]] = None
+    ur: Optional[np.ndarray] = None  # (N,) stereo right u (-1 none)
+    depth: Optional[np.ndarray] = None  # (N,) stereo or RGB-D depth (-1 none)
 
     def host_desc01(self) -> np.ndarray:
         if self.desc01 is None:
@@ -170,6 +172,12 @@ class MonoSlam:
     start, at the first frame's shape and dtype; a frame of another shape or
     dtype stops the threads, captures again and restarts them
     (`recaptures` counts it)."""
+
+    # a monocular map's scale is free; the stereo and RGB-D pipelines pin
+    # the loop closer's Sim3 scale (the reference Sim3Solver's bFixScale)
+    loop_fix_scale = False
+    # fx * baseline of a stereo pipeline: its BAs add the right-u residual
+    bf: Optional[float] = None
 
     def __init__(
         self,
@@ -223,7 +231,7 @@ class MonoSlam:
         # the local BA, one CUDA graph a pose bucket (4, 20) on the card;
         # local BAs by how they ran ("local": a window and its anchors,
         # "gba": the post-loop global BA, always eager): replays, eager calls
-        self._ba_graph = make_local_vision_ba(cam)
+        self._ba_graph = make_local_vision_ba(cam, self.bf)
         self.ba_replays: Dict[str, int] = {}
         self.ba_eager_calls: Dict[str, int] = {}
         self._ba_count_lock = threading.Lock()
@@ -298,20 +306,29 @@ class MonoSlam:
             # every kernel library this configuration launches is built and
             # loaded here, on the constructing thread, never inside a mapping
             # job on a worker (a cold nvcc build there stalled a stream's start)
-            if vocabulary is None:
-                cuda_build.load_libraries([fast_cuda.LIB_NAME])
-            else:
+            cuda_build.load_libraries(self._kernel_libraries())
+            if vocabulary is not None:
                 from viorb_tpu_torch.bow import descend_cuda
 
-                cuda_build.load_libraries([fast_cuda.LIB_NAME, descend_cuda.LIB_NAME])
                 descend_cuda.shared_hist_max_words(self.device)  # loads K8's module into the context
+
+    def _kernel_libraries(self) -> List[str]:
+        """The kernel libraries this configuration launches (subclasses add
+        theirs: the stereo pipeline's K9)."""
+        if self.vocabulary is None:
+            return [fast_cuda.LIB_NAME]
+        from viorb_tpu_torch.bow import descend_cuda
+
+        return [fast_cuda.LIB_NAME, descend_cuda.LIB_NAME]
 
     def _new_loop_closer(self):
         """A fresh LoopCloser on the current map (with a vocabulary), wired
-        to this pipeline's seam fusion and post-loop GBA."""
+        to this pipeline's seam fusion and post-loop GBA, its Sim3 scale
+        pinned where the map is metric (`loop_fix_scale`)."""
         if self.vocabulary is None:
             return
-        self.loop_closer = LoopCloser(self.map, self.vocabulary, cam=self.cam, device=self.device, lock=self.map_lock)
+        self.loop_closer = LoopCloser(self.map, self.vocabulary, cam=self.cam, device=self.device, lock=self.map_lock,
+                                      fix_scale=self.loop_fix_scale)
         self.loop_closer.gba_fn = self._post_loop_gba
         self.loop_closer.fuse_fn = self._fuse_points_into_kf
 
@@ -543,8 +560,17 @@ class MonoSlam:
         state = VisionBAState(self._up(np.broadcast_to(np.eye(3, dtype=np.float32), (k, 3, 3))),
                               self._up(np.zeros((k, 3), np.float32)), self._up(points))
         uv = np.broadcast_to(np.array([self.cam.cx, self.cam.cy], np.float32), (m, r, 2))
-        return (state, self._up(np.zeros((m, r), np.int64)), self._up(uv), self._up(np.ones((m, r), np.float32)),
-                self._up(np.zeros((m, r), bool)), self._up(np.ones(k, bool)))
+        return self._ba_args(state, np.zeros((m, r), np.int64), uv, np.ones((m, r), np.float32),
+                             np.zeros((m, r), bool), np.ones(k, bool),
+                             (np.full((m, r), -1.0, np.float32), np.zeros((m, r), bool)))
+
+    def _ba_args(self, state, kf_idx, uv, inv_s2, valid, fixed_mask, stereo=None) -> tuple:
+        """The local BA graph's arguments on the device: the observation
+        grid, then, in a stereo pipeline, `stereo` = (ur, ur_valid), then
+        the fixed mask."""
+        extra = (self._up(stereo[0]), self._up(stereo[1])) if self.bf is not None else ()
+        return (state, self._up(kf_idx, np.int64), self._up(uv), self._up(inv_s2), self._up(valid), *extra,
+                self._up(fixed_mask))
 
     def _count_ba(self, kind: str, replayed: bool):
         counts = self.ba_replays if replayed else self.ba_eager_calls
@@ -917,6 +943,7 @@ class MonoSlam:
             desc01=None if defer else fr.host_desc01().copy(),
             valid=fr.valid.copy(),
             point_idx=np.full(fr.xy.shape[0], -1, np.int32),
+            ur=None if fr.ur is None else fr.ur.copy(),
             desc01_dev=fr.desc01_dev if defer else None,
         )
 
@@ -1663,8 +1690,11 @@ class MonoSlam:
         padded to `pose_bucket` (fixed identity poses no observation names),
         as the reference pads it; a local BA (`kind` "local") of at most
         GRAPHED_MAX_POSES poses replays its bucket's graph on the card, any
-        other solve (the post-loop GBA, `kind` "gba") runs eagerly. Counted
-        by kind in `ba_replays` / `ba_eager_calls`."""
+        other solve (the post-loop GBA, `kind` "gba") runs eagerly. A stereo
+        pipeline (`bf` set) adds each observation's right u from its
+        keyframe's `ur` and solves with the 3-row residual, through graphs of
+        its own, counted as "stereo_local" / "stereo_gba". Counted by kind in
+        `ba_replays` / `ba_eager_calls`."""
         max_landmarks = max_landmarks or self.max_ba_landmarks
         with self.map_lock:
             window = [k for k in window if k in self.map.keyframes]
@@ -1686,17 +1716,18 @@ class MonoSlam:
             gen = self.map.pt_gen[pt_ids].copy()
             fixed_mask = np.ones(k, bool)
             fixed_mask[: len(kf_list)] = [i in fixed for i in kf_list]
+            stereo = None if self.bf is None else self.map.build_stereo_ur_grid(pt_ids, kf_list, max_landmarks)
             # keyframes made after this snapshot ride the solve's correction
             # through the newest solved keyframe (_apply_ba_result)
             next_kf = self.map._next_kf
             solved = [i for s, i in enumerate(kf_list) if not fixed_mask[s]]
             ref_id = max(solved, default=-1)
             ref_pre = None if ref_id < 0 else (r_cw[kf_list.index(ref_id)].copy(), t_cw[kf_list.index(ref_id)].copy())
-        args = (VisionBAState(self._up(r_cw), self._up(t_cw), self._up(points)), self._up(kf_idx, np.int64),
-                self._up(uv), self._up(inv_s2), self._up(valid), self._up(fixed_mask))
+        args = self._ba_args(VisionBAState(self._up(r_cw), self._up(t_cw), self._up(points)), kf_idx, uv, inv_s2,
+                             valid, fixed_mask, stereo)
         graphed = self._on_card and kind == "local" and k <= GRAPHED_MAX_POSES
         out, valid_out = self._ba_graph(*args) if graphed else self._ba_graph.eager(*args)
-        self._count_ba(kind, graphed)
+        self._count_ba(kind if self.bf is None else "stereo_" + kind, graphed)
         job = (kf_list, pt_ids, gen, kf_idx, valid, fixed_mask, (out.r_cw, out.t_cw, out.points, valid_out),
                self._record_ready(), next_kf, ref_id, ref_pre)
         if not defer:

@@ -6,6 +6,8 @@ correspondences inside RANSAC).
 All hypotheses are solved at once. `sim3_ransac` draws each hypothesis's 3
 indices from a `torch.Generator`; `sim3_from_samples` takes given index
 triples (the reference's draw, replayed by the tests and the goldens).
+With `fix_scale` (stereo and RGB-D, whose maps are metric: the reference
+Sim3Solver's bFixScale) every fit is an SE3, s = 1 exactly.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ class Sim3Result(NamedTuple):
     inliers: torch.Tensor  # (N,) bool
 
 
-def horn_sim3(p1: torch.Tensor, p2: torch.Tensor):
+def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False):
     """Closed-form Sim3 aligning p2 onto p1, both (...,M,3), M >= 3 (Horn
-    1987, the quaternion method): (s (...), R (...,3,3), t (...,3))."""
+    1987, the quaternion method): (s (...), R (...,3,3), t (...,3)); s = 1
+    exactly with `fix_scale`."""
     c1 = p1.mean(dim=-2)
     c2 = p2.mean(dim=-2)
     q1 = p1 - c1[..., None, :]
@@ -46,9 +49,12 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor):
     )
     _, v = torch.linalg.eigh(N)
     R = quat_to_matrix(v[..., :, 3])  # the eigenvector of the largest eigenvalue
-    num = torch.sum(q1 * (q2 @ R.transpose(-1, -2)), dim=(-1, -2))
-    den = torch.sum(q2 * q2, dim=(-1, -2))
-    s = num / den.clamp(min=1e-12)
+    if fix_scale:
+        s = torch.ones_like(c1[..., 0])
+    else:
+        num = torch.sum(q1 * (q2 @ R.transpose(-1, -2)), dim=(-1, -2))
+        den = torch.sum(q2 * q2, dim=(-1, -2))
+        s = num / den.clamp(min=1e-12)
     t = c1 - s[..., None] * (R @ c2[..., None])[..., 0]
     return s, R, t
 
@@ -69,12 +75,13 @@ def sim3_from_samples(
     idx: torch.Tensor,  # (H,3) int64 minimal sets
     inlier_th: float = 0.05,
     min_inliers: int = 20,
+    fix_scale: bool = False,
 ) -> Sim3Result:
     """Score every hypothesis by 3D distance relative to depth (the
     reference gates by reprojection chi2; in 3D the distance relative to
     depth), take the first with the most inliers, refit Horn on its inliers
     (outliers replaced by the inlier centroid)."""
-    s, R, t = horn_sim3(p1[idx], p2[idx])  # (H,), (H,3,3), (H,3)
+    s, R, t = horn_sim3(p1[idx], p2[idx], fix_scale)  # (H,), (H,3,3), (H,3)
     pred = s[:, None, None] * (p2 @ R.transpose(-1, -2)) + t[:, None, :]
     err = torch.linalg.norm(pred - p1, dim=-1)
     scale_ref = torch.linalg.norm(p1, dim=-1).clamp(min=1e-6)
@@ -87,7 +94,7 @@ def sim3_from_samples(
     c1 = (p1 * w).sum(dim=0) / cnt
     c2 = (p2 * w).sum(dim=0) / cnt
     s_r, R_r, t_r = horn_sim3(
-        torch.where(inl[:, None], p1, c1), torch.where(inl[:, None], p2, c2)
+        torch.where(inl[:, None], p1, c1), torch.where(inl[:, None], p2, c2), fix_scale
     )
     return Sim3Result(success=counts[best] >= min_inliers, s=s_r, r=R_r, t=t_r, inliers=inl)
 
@@ -100,7 +107,8 @@ def sim3_ransac(
     n_hypotheses: int = 128,
     inlier_th: float = 0.05,
     min_inliers: int = 20,
+    fix_scale: bool = False,
 ) -> Sim3Result:
     """Sim3 RANSAC over `n_hypotheses` minimal sets drawn from `generator`."""
     idx = sample_sim3_sets(valid, n_hypotheses, generator)
-    return sim3_from_samples(p1, p2, valid, idx, inlier_th, min_inliers)
+    return sim3_from_samples(p1, p2, valid, idx, inlier_th, min_inliers, fix_scale)
