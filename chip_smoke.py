@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
 functions, lock-step, async and streaming SLAM, lock-step and async
-monocular-inertial SLAM, place recognition and loop closing, and lock-step
-stereo and RGB-D SLAM on one NVIDIA GPU.
+monocular-inertial SLAM, place recognition and loop closing, lock-step
+stereo and RGB-D SLAM, and its command line on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -159,7 +159,36 @@ Phases, in order; any failure raises and exits non-zero:
      stereo ones as "stereo_local"), host ms a frame by kind (init,
      keyframe, steady), no kernel build, library load or graph capture off
      the main thread;
- 11. time the fused launch, the 8 single-level launches, their plain
+ 11. the command line: `python -m viorb_tpu_torch` (viorb_tpu_torch/run.py)
+     at full width over dumps written under a temporary directory from the
+     port's renderer (8-bit PNG images and 16-bit PNG depth through
+     io/png.py, with libpng's adaptive per-row filters as real files carry
+     them, each dataset's text files; the decode's ms a frame at these
+     filters): a fresh process running the
+     synthetic VI arc through the lockstep stream (tests/test_run_cli.py's
+     contract; its first frame, init frame, VI init frame, wall time and
+     the CLI's median track time); EuRoC VI from a dump of the same arc and
+     IMU (every image the loader returns equal to the uint8 written; the
+     same contract), then the same frames and samples over the live TCP
+     wire into a lockstep runner and MonoViSlam (inputs equal; trajectory
+     equal, or its first difference printed); TUM RGB-D from a dump
+     (tests/test_run_cli.py's contract, the metric ATE), again with no
+     DepthMapFactor line (the trajectory equal: TUM's 5000 is the
+     fallback); KITTI stereo with loop closing from a dump of the stereo
+     loop circuit (a loop closed with s = 1, one 12-value KITTI row per
+     tracked frame, K9 = right extractions, K8 = keyframes), then
+     `--load-map --localization-only` over its first 20 frames (it
+     relocalizes at the first frame, tracks, adds no keyframe, K8 = the
+     keyframes loaded), and mono `--stream lockstep` over the whole
+     circuit, more frames than the synchronizer's queue holds (every frame
+     processed, none dropped); mono `--streaming --viz-dir` (every PNG decoded by
+     io/png.py to its shape) and mono `--stream realtime --replay-speed
+     1.0` (processed + dropped = frames; the drops reported). Every
+     in-process run: K1 = frames processed + right extractions (the eager
+     warm-up calls of a capture made in the run apart), no kernel build,
+     library load or graph capture off the main thread, no thread left
+     running;
+ 12. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -2455,6 +2484,495 @@ def _stereo_phase(cam, dev, tag: str) -> dict:
     return dict(k1=k1, k8=k8, k9=k9, k9_paths=k9_paths, stereo_ba=stereo_ba)
 
 
+# ---- phase 11: the command line -------------------------------------------
+
+CLI_VI_FRAMES, CLI_MONO_FRAMES, CLI_RGBD_FRAMES, CLI_RELOC_FRAMES = 60, 40, 20, 20
+CLI_RGBD_FEATURES, CLI_STEREO_FEATURES, CLI_DEPTH_FACTOR = 800, 800, 5000.0
+
+# A fresh interpreter that runs `python -m viorb_tpu_torch ARGS` (runpy, the
+# module's own __main__), timing each MonoViSlam frame from the outside and
+# counting the kernels' launches; it writes them as JSON to its first
+# argument. The command line's own output is left as it is.
+_CLI_CHILD = """
+import json, runpy, sys, time
+t_start = time.perf_counter()
+stats_path = sys.argv.pop(1)
+sys.argv[0] = "viorb_tpu_torch"
+import chip_smoke
+from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+rows = []
+step = MonoViSlam.process_frame_vi
+def timed(self, *args):
+    t0 = time.perf_counter()
+    info = step(self, *args)
+    rows.append(((t0 - t_start) * 1e3, (time.perf_counter() - t0) * 1e3, info["state"], bool(self.vi_ready)))
+    return info
+MonoViSlam.process_frame_vi = timed
+with chip_smoke._kernel_launches() as launches:
+    runpy.run_module("viorb_tpu_torch", run_name="__main__", alter_sys=True)
+with open(stats_path, "w") as f:
+    json.dump({"frames": rows, "launches": launches, "off_main_thread": chip_smoke._off_main_thread(),
+               "seconds": time.perf_counter() - t_start}, f)
+"""
+
+
+@contextlib.contextmanager
+def _kernel_launches():
+    """Yields a dict that holds, after the block, the launches of K1 (`k1`:
+    the eager fused launches plus every tracking core's graph replays, less
+    the eager warm-up calls of the captures made inside the block; `k1_single`,
+    the per-level entry's), K8 (`k8`, `k8_global`) and K9 (`k9`) made inside
+    it, with every counter set to 0 just before."""
+    from viorb_tpu_torch.bow import descend_cuda
+    from viorb_tpu_torch.cuda_graph import WARMUP_CALLS
+    from viorb_tpu_torch.features import fast_cuda
+    from viorb_tpu_torch.slam import stereo_cuda, tracking_loop
+
+    def graphs():
+        for core in list(tracking_loop._CORE_CACHE.values()):
+            yield from (core.graphs.values() if hasattr(core, "graphs") else [core])
+
+    before = {id(g): len(g.captured()) for g in graphs()}
+    for g in graphs():
+        g.reset_counts()
+    fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
+    descend_cuda.LAUNCHES_K8 = descend_cuda.LAUNCHES_K8_GLOBAL = 0
+    stereo_cuda.LAUNCHES_K9 = 0
+    out = {}
+    yield out
+    cell, single, warm = fast_cuda.CELL_LAUNCHES, fast_cuda.LAUNCHES, 0
+    for g in graphs():
+        cell += g.launches()["CELL_LAUNCHES"]
+        single += g.launches()["LAUNCHES"]
+        warm += WARMUP_CALLS * sum(c["CELL_LAUNCHES"] for c in g.captured()[before.get(id(g), 0):])
+    out.update(k1=cell - warm, k1_single=single, k8=descend_cuda.LAUNCHES_K8,
+               k8_global=descend_cuda.LAUNCHES_K8_GLOBAL, k9=stereo_cuda.LAUNCHES_K9)
+
+
+def _cli_settings(cam, **extra) -> str:
+    """A settings file of the reference's YAML schema for `cam`, with
+    `extra` keys (a value that is an array becomes an opencv-matrix)."""
+    import numpy as np
+
+    lines = ["%YAML:1.0", f"Camera.fx: {cam.fx}", f"Camera.fy: {cam.fy}", f"Camera.cx: {cam.cx}",
+             f"Camera.cy: {cam.cy}", "Camera.k1: 0.0", "Camera.k2: 0.0", "Camera.p1: 0.0", "Camera.p2: 0.0",
+             f"Camera.width: {cam.width}", f"Camera.height: {cam.height}"]
+    for key, value in extra.items():
+        if isinstance(value, np.ndarray):
+            lines += [f"{key}: !!opencv-matrix", f"   rows: {value.shape[0]}", f"   cols: {value.shape[1]}",
+                      "   dt: f", "   data: [" + ", ".join(repr(float(v)) for v in value.ravel()) + "]"]
+        else:
+            lines.append(f"{key}: {value}")
+    return "\n".join(lines) + "\n"
+
+
+def _cli_trajectory_ok(path: str, min_rows: int, what: str):
+    import numpy as np
+
+    traj = np.loadtxt(path, ndmin=2)
+    _check(traj.shape[0] >= min_rows and np.isfinite(traj).all(),
+           f"{what}: {traj.shape[0]} trajectory rows (>= {min_rows} wanted), finite {np.isfinite(traj).all()}")
+    return traj
+
+
+def _cli_phase(cam, dev, tag: str) -> dict:
+    """The port's command line on the card (module docstring, phase 11):
+    dumps written under a temporary directory from the port's renderer
+    (8-bit PNG images and 16-bit PNG depth through io/png.py, each
+    dataset's text files), then `viorb_tpu_torch.run.main` in process
+    (after a fresh `python -m viorb_tpu_torch` for the VI stream run), each
+    run's kernel launches counted. Returns the kernels line's K1, K8 and K9
+    launches by path."""
+    import io as stdio
+    import zlib
+    import re
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch import cuda_graph
+    from viorb_tpu_torch.bow import train_vocabulary
+    from viorb_tpu_torch.eval.ate import ate_rmse
+    from viorb_tpu_torch.features.extractor import OrbExtractor
+    from viorb_tpu_torch.io import datasets, synthetic
+    from viorb_tpu_torch.io.config import SlamConfig
+    from viorb_tpu_torch.io.live import LivePublisher, LiveSource
+    from viorb_tpu_torch.io.png import _chunks as png_chunks
+    from viorb_tpu_torch.io.png import read_png, write_png
+    from viorb_tpu_torch.io.stream import MsgSynchronizer, RealtimeRunner
+    from viorb_tpu_torch.mapping.serialize import load_map
+    from viorb_tpu_torch.run import main as cli_main
+    from viorb_tpu_torch.slam.loop_closing import LoopCloser
+    from viorb_tpu_torch.slam.mono import MonoSlam
+    from viorb_tpu_torch.slam.mono_vi import MonoViSlam
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    k1, k8, k9 = {}, {}, {}
+    tmp_dir = tempfile.TemporaryDirectory(prefix="viorb_cli_")
+    tmp = tmp_dir.name
+
+    def run_cli(label, argv, frames_processed, right_extractions=0, patch=None):
+        """run.main(argv) in this process: its stderr kept and its summary
+        lines printed; K1 = frames processed + right extractions checked
+        (a function of the run's slam and stderr when not a number); no
+        build, load or capture off the main thread; the threads stopped.
+        Returns (slam, stderr, launches)."""
+        err = stdio.StringIO()
+        t0 = time.perf_counter()
+        with _kernel_launches() as n, contextlib.redirect_stderr(err), (patch or contextlib.nullcontext()):
+            slam = cli_main(argv + ["--device", str(dev)])
+        wall = time.perf_counter() - t0
+        text = err.getvalue()
+        median = re.search(r"median track time: ([0-9.]+) ms", text)
+        frames = frames_processed(slam, text) if callable(frames_processed) else frames_processed
+        rx = right_extractions(slam) if callable(right_extractions) else right_extractions
+        print(f"{tag} CLI {label}: {wall:.1f} s of host time, the CLI's median track time "
+              f"{median.group(1) if median else '?'} ms; K1 {n['k1']} for {frames} frames + {rx} right "
+              f"extractions, K8 {n['k8']}, K9 {n['k9']}; the CLI's last lines: "
+              + " | ".join(text.strip().splitlines()[-3:]))
+        k1[f"CLI {label}"], k8[f"CLI {label}"], k9[f"CLI {label}"] = n["k1"], n["k8"], n["k9"]
+        if on_card:
+            _check(n["k1"] == frames + rx and n["k1_single"] == 0,
+                   f"CLI {label}: K1 launches {n['k1']} (single-image {n['k1_single']}) for {frames} frames + "
+                   f"{rx} right extractions")
+            _check(n["k8_global"] == 0, f"CLI {label}: K8 took its global-histogram path")
+        _check_main_thread_only(f"CLI {label}")
+        _check(slam._worker is None and slam._collector is None and cuda_graph.card_threads() == 0
+               and not any(t.name == "viorb-stream-feeder" and t.is_alive() for t in threading.enumerate()),
+               f"CLI {label}: threads left running")
+        return slam, text, n
+
+    def stream_counts(text):
+        """(processed, frames, dropped) of a --stream run's summary line."""
+        m = re.search(r"stream mode \w+: processed (\d+)/(\d+) frames, dropped (\d+)", text)
+        _check(m is not None, "a --stream run printed no summary line")
+        return int(m.group(1)), int(m.group(2)), int(m.group(3))
+
+    def stream_processed(slam, text):
+        """A lockstep run's frames processed: the IMU must have reached a
+        frame's stamp for the synchronizer to release it."""
+        n, frames, dropped = stream_counts(text)
+        _check(dropped == 0 and n >= frames - 1, f"lockstep: processed {n} of {frames}, dropped {dropped}")
+        return n
+
+    # 1. the VI stream path as a fresh process: python -m viorb_tpu_torch
+    out_t, out_k, stats = (os.path.join(tmp, f) for f in ("vi_traj.txt", "vi_kf.txt", "vi_stats.json"))
+    cmd = [sys.executable, "-c", _CLI_CHILD, stats, "--dataset", "synthetic", "--vi", "--frames",
+           str(CLI_VI_FRAMES), "--stream", "lockstep", "--out", out_t, "--out-kf", out_k]
+    if not on_card:
+        cmd += ["--device", str(dev)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=root))
+    wall = time.perf_counter() - t0
+    _check(child.returncode == 0, f"python -m viorb_tpu_torch --vi --stream lockstep exited {child.returncode}: "
+           + child.stderr[-3000:])
+    with open(stats) as f:
+        st = json.load(f)
+    traj = _cli_trajectory_ok(out_t, 50, "python -m viorb_tpu_torch --vi --stream lockstep")
+    kf = np.loadtxt(out_k, ndmin=2)
+    _check(kf.shape[0] >= 5 and kf.shape[1] == 17, f"the keyframe NavState file has shape {kf.shape}")
+    rows = st["frames"]
+    init = next(i for i, r in enumerate(rows) if r[2] == "OK")
+    vi_init = next((i for i, r in enumerate(rows) if r[3]), None)
+    steady = sorted(r[1] for r in rows[init + 2:])
+    median = re.search(r"median track time: ([0-9.]+) ms", child.stderr)
+    print(f"{tag} CLI python -m viorb_tpu_torch --dataset synthetic --vi --frames {CLI_VI_FRAMES} --stream lockstep, "
+          f"a fresh process: wall {wall:.1f} s (the interpreter's own clock {st['seconds']:.1f} s), its first frame "
+          f"began {rows[0][0]:.0f} ms after start (imports, rendering) and took {rows[0][1]:.1f} ms; the map's init "
+          f"at frame {init}, {rows[init][1]:.1f} ms; frame {init + 1} (the tracking core's capture) "
+          f"{rows[init + 1][1]:.1f} ms; VI init at frame {vi_init} "
+          f"{rows[vi_init][1] if vi_init is not None else float('nan'):.1f} ms; later frames median "
+          f"{statistics.median(steady):.1f} ms, max {steady[-1]:.1f} ms; the CLI's own median track time "
+          f"{median.group(1) if median else '?'} ms; {traj.shape[0]} trajectory rows, {kf.shape[0]} keyframe "
+          f"rows; K1 {st['launches']['k1']} for {len(rows)} frames; off the main thread {st['off_main_thread']}")
+    for paths, key in ((k1, "k1"), (k8, "k8"), (k9, "k9")):
+        paths["CLI python -m, synthetic --vi --stream lockstep"] = st["launches"][key]
+    if on_card:
+        _check(st["launches"]["k1"] == len(rows), f"the fresh process's K1 launches {st['launches']}, {len(rows)} frames")
+    _check(not any(st["off_main_thread"].values()), f"the fresh process: {st['off_main_thread']} off the main thread")
+
+    # 2. EuRoC VI from a dump of the same arc and IMU
+    seq = synthetic.make_sequence(CLI_VI_FRAMES, cam=cam, dt=VI_DT, device=dev)
+    imu = synthetic.make_imu(CLI_VI_FRAMES, VI_DT)
+    euroc = os.path.join(tmp, "euroc")
+    for d in ("mav0/cam0/data", "mav0/imu0"):
+        os.makedirs(os.path.join(euroc, d))
+    images = [synthetic.to_uint8(im).cpu().numpy() for im in seq.images]
+    t_ns = [int(round(float(t) * 1e9)) for t in seq.timestamps]
+    for img, t in zip(images, t_ns):
+        write_png(os.path.join(euroc, f"mav0/cam0/data/{t}.png"), img, filter_type="adaptive")
+    with open(os.path.join(euroc, "mav0/cam0/data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n" + "".join(f"{t},{t}.png\n" for t in t_ns))
+    with open(os.path.join(euroc, "mav0/imu0/data.csv"), "w") as f:  # %.17g: each f32 sample read back exactly
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n" + "".join(
+            f"{int(round(float(t) * 1e9))}," + ",".join(f"{float(v):.17g}" for v in (*g, *a)) + "\n"
+            for t, g, a in zip(imu.t, imu.gyro, imu.acc)))
+    euroc_cfg = os.path.join(tmp, "euroc.yaml")
+    with open(euroc_cfg, "w") as f:
+        f.write(_cli_settings(cam, **{"Camera.fps": 10.0, "Camera.Tbc": np.eye(4), "IMU.multiplyG": 0,
+                                      "Camera.delaytoimu": 0, "test.VINSInitTime": 15.0,
+                                      "ORBextractor.nFeatures": 1000}))
+    loaded = datasets.load_euroc_mono(euroc)
+    for (ts, img), want in zip(loaded, images):
+        _check(img.dtype == np.float32 and np.array_equal(img, want.astype(np.float32)),
+               f"the EuRoC loader's frame at {ts} differs from the uint8 image written")
+    seen = {"dump": [], "live": []}  # per frame: (ts, image, samples) handed to process_frame_vi, and its info
+
+    def recording(key, step):
+        def wrapped(self, image, ts, samples):
+            info = step(self, image, ts, samples)
+            seen[key].append((ts, np.asarray(image), [(t, np.asarray(g), np.asarray(a)) for t, g, a in samples],
+                              (info["state"], info["n_tracked"], info["n_kfs"])))
+            return info
+        return wrapped
+
+    slam, _, _ = run_cli(
+        "euroc --vi --stream lockstep", ["--dataset", "euroc", "--path", euroc, "--config", euroc_cfg, "--vi",
+                                         "--stream", "lockstep", "--out", os.path.join(tmp, "euroc_traj.txt"),
+                                         "--out-kf", os.path.join(tmp, "euroc_kf.txt")],
+        stream_processed, patch=mock.patch.object(MonoViSlam, "process_frame_vi",
+                                                  recording("dump", MonoViSlam.process_frame_vi)))
+    dump_traj = slam.trajectory_tum()
+    traj = _cli_trajectory_ok(os.path.join(tmp, "euroc_traj.txt"), 50, "CLI euroc --vi")
+    kf = np.loadtxt(os.path.join(tmp, "euroc_kf.txt"), ndmin=2)
+    _check(kf.shape[0] >= 5 and kf.shape[1] == 17, f"CLI euroc --vi: keyframe NavState file shape {kf.shape}")
+    ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+    print(f"{tag} CLI euroc --vi: {traj.shape[0]} rows, {kf.shape[0]} keyframes, VI ready {slam.vi_ready}, "
+          f"metric ATE {ate:.4f} m")
+
+    # the same frames and samples over the live TCP wire into a lockstep runner
+    cfg = SlamConfig.from_yaml(euroc_cfg)
+    it, ig, ia = datasets.load_euroc_imu(euroc)
+    frames = list(loaded)
+    live = MonoViSlam(cfg.camera, r_bc=cfg.r_bc, p_bc=cfg.p_bc, n_features=cfg.n_features,
+                      local_window=cfg.local_window, vi_init_min_time=min(cfg.vins_init_time, 3.0), device=dev)
+    pub = LivePublisher()
+    sync = MsgSynchronizer(image_delay=cfg.image_delay_to_imu)
+    box = {}
+
+    def publish():
+        pub.wait_subscriber(timeout=60.0)
+        k = 0
+        for ts, img in frames:
+            while k < len(it) and it[k] <= ts + cfg.image_delay_to_imu:
+                pub.send_imu(float(it[k]), ig[k], ia[k])
+                k += 1
+            pub.send_image(ts, img)
+        pub.close()
+
+    sender = threading.Thread(target=publish, name="cli-live-publisher")
+    sender.start()
+    source = LiveSource(*pub.address, sync).start()
+    step = recording("live", MonoViSlam.process_frame_vi)
+    with _kernel_launches() as n:
+        done = RealtimeRunner(sync, lambda ts, img, s: step(live, img, float(ts), [(float(t), g, a) for t, g, a in s]),
+                              mode="lockstep").run()
+        live.wait_mapping_idle()
+    sender.join(60.0)
+    source.join(60.0)
+    live.shutdown()
+    _check(not sender.is_alive() and done == len(seen["dump"]),
+           f"the live replay processed {done} frames, the dump run {len(seen['dump'])}")
+    k1["CLI euroc dump over the live wire"], k8["CLI euroc dump over the live wire"] = n["k1"], n["k8"]
+    k9["CLI euroc dump over the live wire"] = n["k9"]
+    _check(not on_card or n["k1"] == done, f"the live replay's K1 launches {n} for {done} frames")
+    live_traj = live.trajectory_tum()
+    same_inputs = next((i for i, (a, b) in enumerate(zip(seen["dump"], seen["live"]))
+                        if a[0] != b[0] or not np.array_equal(a[1], b[1]) or len(a[2]) != len(b[2])
+                        or any(x[0] != y[0] or not np.array_equal(np.float32(x[1]), np.float32(y[1]))
+                               or not np.array_equal(np.float32(x[2]), np.float32(y[2])) for x, y in zip(a[2], b[2]))),
+                       None)
+    _check(same_inputs is None, f"the live wire handed frame {same_inputs} over differently from the dump run")
+    if dump_traj.shape == live_traj.shape and np.array_equal(dump_traj, live_traj):
+        print(f"{tag} CLI euroc dump over LivePublisher -> LiveSource -> lockstep runner -> MonoViSlam: every input "
+              f"equal to the dump run's, trajectory equal ({live_traj.shape[0]} rows, bit for bit)")
+    else:
+        first = next((i for i, (a, b) in enumerate(zip(seen["dump"], seen["live"])) if a[3] != b[3]), None)
+        d = (np.abs(dump_traj - live_traj).max() if dump_traj.shape == live_traj.shape else float("nan"))
+        print(f"{tag} CLI euroc dump over the live wire: every input equal to the dump run's, the trajectories "
+              f"differ ({dump_traj.shape} vs {live_traj.shape}, max |d| {d:.3e}); the first frame whose outcome "
+              f"differs: {first} ({seen['dump'][first][3] if first is not None else '-'} vs "
+              f"{seen['live'][first][3] if first is not None else '-'}): with equal inputs, the card's run-to-run "
+              f"difference")
+
+    # 3. TUM RGB-D from a dump, with and without the DepthMapFactor line
+    rseq, depths = synthetic.make_sequence(CLI_RGBD_FRAMES, cam=cam, dt=VI_DT, device=dev, with_depth=True)
+    tum = os.path.join(tmp, "tum")
+    os.makedirs(os.path.join(tum, "rgb"))
+    os.makedirs(os.path.join(tum, "depth"))
+    lines = []
+    for i, (img, dep, ts) in enumerate(zip(rseq.images, depths, rseq.timestamps)):
+        write_png(os.path.join(tum, f"rgb/{i:04d}.png"), synthetic.to_uint8(img).cpu().numpy(), filter_type="adaptive")
+        write_png(os.path.join(tum, f"depth/{i:04d}.png"),
+                  (dep * CLI_DEPTH_FACTOR).round().clamp(0, 65535).cpu().numpy().astype(np.uint16),
+                  filter_type="adaptive")
+        lines.append(f"{ts:.6f} rgb/{i:04d}.png {ts:.6f} depth/{i:04d}.png")
+    with open(os.path.join(tum, "associations.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    trajs = {}
+    for label, extra in (("tum --rgbd", {"DepthMapFactor": CLI_DEPTH_FACTOR}), ("tum --rgbd, no DepthMapFactor", {})):
+        path = os.path.join(tmp, f"tum{len(trajs)}.yaml")
+        with open(path, "w") as f:
+            f.write(_cli_settings(cam, **{"Camera.fps": 10.0, "ORBextractor.nFeatures": CLI_RGBD_FEATURES, **extra}))
+        slam, _, _ = run_cli(label, ["--dataset", "tum", "--rgbd", "--path", tum, "--config", path, "--out",
+                                     os.path.join(tmp, "tum_traj.txt")], CLI_RGBD_FRAMES)
+        traj = _cli_trajectory_ok(os.path.join(tmp, "tum_traj.txt"), 15, f"CLI {label}")
+        trajs[label] = slam.trajectory_tum()
+        ate = ate_rmse(traj[:, 0], traj[:, 1:4], rseq.timestamps, rseq.c_w, with_scale=False)
+        print(f"{tag} CLI {label}: {traj.shape[0]} rows, final {slam.state}, metric ATE {ate:.4f} m to the "
+              f"renderer's truth")
+    a, b = trajs.values()
+    _check(a.shape == b.shape and np.array_equal(a, b),
+           "CLI tum --rgbd: the run without DepthMapFactor must read depth with TUM's 5000 and equal the run with it")
+
+    # 4. KITTI stereo with loop closing from a dump of the stereo loop circuit,
+    # then the saved map reloaded for localization over its first frames
+    lseq, lright = synthetic.make_stereo_sequence(LOOP_FRAMES, cam=cam, dt=LOOP_DT, baseline=STEREO_BASELINE,
+                                                  kind="circuit", noise_std=LOOP_NOISE, device=dev)
+    kitti = os.path.join(tmp, "kitti")
+    left_u8 = []
+    for cam_dir, imgs in (("image_0", lseq.images), ("image_1", lright)):
+        os.makedirs(os.path.join(kitti, cam_dir))
+        for i, img in enumerate(imgs):
+            u8 = synthetic.to_uint8(img).cpu().numpy()
+            write_png(os.path.join(kitti, cam_dir, f"{i:06d}.png"), u8, filter_type="adaptive")
+            if cam_dir == "image_0":
+                left_u8.append(u8)
+    with open(os.path.join(kitti, "times.txt"), "w") as f:
+        f.write("".join(f"{t:.6e}\n" for t in lseq.timestamps))
+    decode_ms = {}
+    for what, path in (("a KITTI right image (752x480, 8-bit)", os.path.join(kitti, "image_1", "000000.png")),
+                       ("a TUM depth image (752x480, 16-bit)", os.path.join(tum, "depth", "0000.png"))):
+        with open(path, "rb") as f:
+            kinds = np.bincount(np.frombuffer(zlib.decompress(b"".join(
+                body for ctype, body in png_chunks(f.read(), path) if ctype == b"IDAT")), np.uint8)
+                .reshape(cam.height, -1)[:, 0], minlength=5)
+        reads = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            read_png(path)
+            reads.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[what] = statistics.median(reads)
+        print(f"{tag} CLI io/png.py read of {what}, rows by filter type 0-4 {kinds.tolist()}: median "
+              f"{decode_ms[what]:.3f} ms, min {min(reads):.3f} ms over 20 reads (the host's clock, warm file cache)")
+    ex = OrbExtractor(n_features=LOOP_VOCAB_FEATURES)  # tests/test_e2e_stereo_loop.py's vocabulary, as phase 10
+    descs = []
+    for i in range(0, LOOP_FRAMES, LOOP_VOCAB_EVERY):
+        feats = ex.extract(torch.from_numpy(left_u8[i]).to(dev), device=dev)
+        descs.append(feats.desc01[feats.valid].cpu().numpy())
+    vocab_path = os.path.join(tmp, "vocab.npz")
+    train_vocabulary(np.concatenate(descs), k=8, depth=3).save(vocab_path)
+    kitti_cfg = os.path.join(tmp, "kitti.yaml")
+    with open(kitti_cfg, "w") as f:
+        f.write(_cli_settings(cam, **{"Camera.fps": 10.0, "Camera.bf": cam.fx * STEREO_BASELINE, "ThDepth": 35.0,
+                                      "ORBextractor.nFeatures": CLI_STEREO_FEATURES}))
+    closures = []
+    correct = LoopCloser.correct
+
+    def record_scale(self, kf_id, cand_id, s12, *args, **kwargs):
+        closures.append(float(s12))
+        return correct(self, kf_id, cand_id, s12, *args, **kwargs)
+
+    map_path, out_kitti = os.path.join(tmp, "kitti_map.npz"), os.path.join(tmp, "kitti_traj.txt")
+    slam, _, n = run_cli("kitti --stereo --loop-closing", [
+        "--dataset", "kitti", "--path", kitti, "--config", kitti_cfg, "--stereo", "--loop-closing", "--vocab",
+        vocab_path, "--save-map", map_path, "--out-kitti", out_kitti, "--out", os.path.join(tmp, "k_tum.txt")],
+        LOOP_FRAMES, right_extractions=lambda s: s.right_extractions,
+        patch=mock.patch.object(LoopCloser, "correct", record_scale))
+    rows = np.loadtxt(out_kitti, ndmin=2)
+    tum_rows = slam.trajectory_tum()
+    ate = ate_rmse(tum_rows[:, 0], tum_rows[:, 1:4], lseq.timestamps, lseq.c_w, with_scale=False)
+    print(f"{tag} CLI kitti --stereo --loop-closing: {slam.loop_closer.loops_closed} loops closed, Sim3 scales "
+          f"{closures}, {rows.shape[0]} KITTI rows of {rows.shape[1]} values for {tum_rows.shape[0]} tracked frames, "
+          f"{slam.map._next_kf} keyframes made, {slam.right_extractions} right extractions, metric ATE {ate:.4f} m")
+    _check(slam.loop_closer.loops_closed >= 1 and closures and all(s == 1.0 for s in closures),
+           f"CLI kitti --stereo --loop-closing: {slam.loop_closer.loops_closed} loops, scales {closures}")
+    _check(rows.shape == (tum_rows.shape[0], 12) and np.isfinite(rows).all(),
+           f"the KITTI file holds {rows.shape}, {tum_rows.shape[0]} tracked frames")
+    if on_card:
+        _check(n["k9"] == slam.right_extractions and n["k8"] == slam.map._next_kf,
+               f"CLI kitti: K9 {n['k9']} for {slam.right_extractions} right extractions, K8 {n['k8']} for "
+               f"{slam.map._next_kf} keyframes")
+    saved = load_map(map_path).kf_ids()
+    short = os.path.join(tmp, "kitti_first")
+    os.makedirs(short)
+    for cam_dir in ("image_0", "image_1"):
+        os.symlink(os.path.join(kitti, cam_dir), os.path.join(short, cam_dir))
+    with open(os.path.join(short, "times.txt"), "w") as f:
+        f.write("".join(f"{t:.6e}\n" for t in lseq.timestamps[:CLI_RELOC_FRAMES]))
+    relocs = []
+    relocalize = MonoSlam._relocalize
+
+    def count_relocs(self, fr):
+        relocs.append(relocalize(self, fr))
+        return relocs[-1]
+
+    slam, _, n = run_cli("kitti --stereo --load-map --localization-only", [
+        "--dataset", "kitti", "--path", short, "--config", kitti_cfg, "--stereo", "--vocab", vocab_path,
+        "--load-map", map_path, "--localization-only", "--out", os.path.join(tmp, "reloc.txt")],
+        CLI_RELOC_FRAMES, right_extractions=lambda s: s.right_extractions,
+        patch=mock.patch.object(MonoSlam, "_relocalize", count_relocs))
+    reloc = np.loadtxt(os.path.join(tmp, "reloc.txt"), ndmin=2)
+    print(f"{tag} CLI kitti --load-map --localization-only over the first {CLI_RELOC_FRAMES} frames: "
+          f"{len(saved)} keyframes loaded, {reloc.shape[0]} frames tracked (first at t = {reloc[0, 0]:.3f} s), final "
+          f"{slam.state}, keyframes after {len(slam.map.kf_ids())}, K8 {n['k8']}; relocalizations {len(relocs)} "
+          f"({sum(relocs)} succeeded): a frame the pipeline core does not track against the reference "
+          f"keyframe's local map relocalizes")
+    _check(reloc.shape[0] >= 0.9 * CLI_RELOC_FRAMES and abs(reloc[0, 0] - lseq.timestamps[0]) < 1e-6
+           and slam.state == "OK" and sorted(slam.map.kf_ids()) == sorted(saved),
+           f"the reloaded map: {reloc.shape[0]} frames tracked, first at {reloc[0, 0]}, final {slam.state}, "
+           f"keyframes {len(slam.map.kf_ids())} of {len(saved)}")
+    _check(not on_card or n["k8"] == len(saved), f"--load-map: K8 {n['k8']} for {len(saved)} loaded keyframes")
+
+    # the lockstep stream over more frames than the synchronizer's queue holds
+    # (its max_images): the feeder waits for room, so no frame is dropped
+    _check(LOOP_FRAMES > MsgSynchronizer().max_images, "the lockstep run must outnumber the synchronizer's queue")
+
+    def all_processed(slam, text):
+        n, frames, dropped = stream_counts(text)
+        _check(dropped == 0 and n == frames == LOOP_FRAMES, f"lockstep over the circuit: processed {n} of {frames}, "
+               f"dropped {dropped}")
+        print(f"{tag} CLI kitti --stream lockstep: processed {n} of {frames} frames, dropped {dropped} (a queue of "
+              f"{MsgSynchronizer().max_images})")
+        return n
+
+    run_cli("kitti --stream lockstep", ["--dataset", "kitti", "--path", kitti, "--config", kitti_cfg, "--stream",
+                                        "lockstep", "--out", os.path.join(tmp, "kitti_mono.txt")], all_processed)
+
+    # 5. mono streaming with the headless viewer; mono through the realtime stream
+    viz = os.path.join(tmp, "viz")
+    slam, _, _ = run_cli("synthetic --streaming --viz-dir", [
+        "--dataset", "synthetic", "--frames", str(CLI_MONO_FRAMES), "--streaming", "--viz-dir", viz, "--out",
+        os.path.join(tmp, "stream.txt")], CLI_MONO_FRAMES)
+    _cli_trajectory_ok(os.path.join(tmp, "stream.txt"), int(0.8 * CLI_MONO_FRAMES), "CLI --streaming")
+    pngs = sorted(os.listdir(viz))
+    shapes = {f: read_png(os.path.join(viz, f)).shape for f in pngs}
+    want = {"frame": (slam.cam.height + 12, slam.cam.width, 3), "map": (450, 990, 3)}
+    _check(len([f for f in pngs if f.startswith("frame_")]) == CLI_MONO_FRAMES // 10 and "map_final.png" in pngs
+           and all(shapes[f] == want[f.split("_")[0]] for f in pngs), f"the viewer wrote {shapes}")
+    print(f"{tag} CLI --viz-dir: {len(pngs)} PNGs, each decoded by io/png.py to its shape: "
+          f"{sorted(set(shapes.values()))}")
+
+    def processed(slam, text):
+        n, frames, dropped = stream_counts(text)
+        _check(n + dropped == frames == CLI_MONO_FRAMES, f"realtime: processed {n} + dropped {dropped} != {frames}")
+        print(f"{tag} CLI --stream realtime --replay-speed 1.0: processed {n} of {frames} frames, dropped {dropped} "
+              f"(reported, not enforced)")
+        return n
+
+    run_cli("synthetic --stream realtime --replay-speed 1.0", [
+        "--dataset", "synthetic", "--frames", str(CLI_MONO_FRAMES), "--stream", "realtime", "--replay-speed", "1.0",
+        "--out", os.path.join(tmp, "realtime.txt")], processed)
+    tmp_dir.cleanup()
+    print(f"{tag} the command line phase: {time.perf_counter() - t_phase:.1f} s of host time")
+    return dict(k1=k1, k8=k8, k9=k9)
+
+
 def _kernels_per_call(fn) -> int:
     """CUDA kernels (and device copies) one call of fn() launches, by the
     profiler; 0 when the profiler records no device activity."""
@@ -2989,11 +3507,18 @@ def main() -> int:
     marks.append(("10 stereo and RGB-D", time.perf_counter()))
     threaded_launches.update(stereo["k1"])
     loop_k8["StereoSlam loop"] = stereo["k8"]["StereoSlam loop"]
+
+    # ---- 11. the command line ---------------------------------------------
+    cli = _cli_phase(cam, dev, tag)
+    marks.append(("11 the command line", time.perf_counter()))
+    threaded_launches.update(cli["k1"])
+    loop_k8.update(cli["k8"])
+    stereo["k9_paths"].update(cli["k9"])
     print(f"K9 launches by path: {json.dumps(stereo['k9_paths'])}")
     print(f"K1 launches by path: {json.dumps({'tracking cores': cell_launches, 'MonoSlam': slam_launches, **threaded_launches})}")
     print(f"K8 launches by path: {json.dumps(loop_k8)}")
 
-    # ---- 11. times -------------------------------------------------------
+    # ---- 12. times -------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -3153,7 +3678,7 @@ def main() -> int:
     print(f"{tag} two_view_init, {tv_x1.shape[0]} match slots, 256 hypotheses: {init_ms:.3f} ms a call")
 
     _check_main_thread_only("the whole run")
-    marks.append(("11", time.perf_counter()))
+    marks.append(("12", time.perf_counter()))
     print(f"{tag} chip_smoke.py's host seconds by phase: " + ", ".join(
         f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
         + f"; {marks[-1][1] - marks[0][1]:.1f} s in all")
@@ -3182,8 +3707,8 @@ def main() -> int:
                     f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each, async and "
                     f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames, the loop "
                     f"phase's MonoSlam and MonoViSlam runs, StereoSlam (with the right images' extractions) and "
-                    f"RgbdSlam over {STEREO_FRAMES} frames, StereoSlam with loop closing over {LOOP_FRAMES} "
-                    f"(graph replays + eager extractions)",
+                    f"RgbdSlam over {STEREO_FRAMES} frames, StereoSlam with loop closing over {LOOP_FRAMES}, "
+                    f"and the command line's runs (phase 11) (graph replays + eager extractions)",
             "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
             "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
             "max_abs_err": cells_err,
@@ -3200,7 +3725,8 @@ def main() -> int:
             "source": "viorb_tpu_torch/csrc/bow_descend.cu",
             "replaces": "viorb_tpu/bow/vocabulary.py:148",
             "path": f"LoopCloser.add_keyframe in every mapping job of lock-step MonoSlam with loop closing over "
-                    f"the {LOOP_FRAMES}-frame circuit (launches_by_path: every run of the loop phase)",
+                    f"the {LOOP_FRAMES}-frame circuit (launches_by_path: every run of the loop phase and of the "
+                    f"command line's)",
             "launches": loop_k8[k8["main_path"]],
             "launches_by_path": loop_k8,
             "max_abs_err": k8["max_abs_err"],
@@ -3220,7 +3746,8 @@ def main() -> int:
             "source": "viorb_tpu_torch/csrc/stereo_sad.cu",
             "replaces": "viorb_tpu/slam/kernels.py:324",
             "path": f"StereoSlam._attach_stereo at the initialization and each keyframe of lock-step StereoSlam "
-                    f"over the {STEREO_FRAMES}-frame stereo arc (launches_by_path: the stereo phase's runs)",
+                    f"over the {STEREO_FRAMES}-frame stereo arc (launches_by_path: the stereo phase's runs and the "
+                    f"command line's)",
             "launches": stereo["k9_paths"]["StereoSlam"],
             "launches_by_path": stereo["k9_paths"],
             "max_abs_err": 0.0,

@@ -2,15 +2,16 @@
 (lock-step and streaming MonoSlam), `tests/torch_vi_golden.npz`
 (lock-step MonoViSlam), `tests/torch_front_golden.npz` (the tracking step
 and cores), `tests/torch_optim_golden.npz` (the VI optimizers and init),
-`tests/torch_loop_golden.npz` (loop closing) and
-`tests/torch_stereo_golden.npz` (lock-step StereoSlam and RgbdSlam).
+`tests/torch_loop_golden.npz` (loop closing),
+`tests/torch_stereo_golden.npz` (lock-step StereoSlam and RgbdSlam) and
+`tests/torch_cli_golden.npz` (the command line over a TUM RGB-D dump).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py [SET ...]           # write
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check [SET ...]   # recompute, compare
 
-SET is `mono`, `vi`, `front`, `optim`, `loop` or `stereo` (default: all
-six). The mono set is described first; the others at `VI_CONFIGS`,
-`FRONT_DOC`, `OPTIM_DOC`, `LOOP_DOC` and `STEREO_DOC`.
+SET is `mono`, `vi`, `front`, `optim`, `loop`, `stereo` or `cli` (default:
+all seven). The mono set is described first; the others at `VI_CONFIGS`,
+`FRONT_DOC`, `OPTIM_DOC`, `LOOP_DOC`, `STEREO_DOC` and `CLI_DOC`.
 
 The JAX package's `MonoSlam` (the reference) runs, lock-step, on the frames
 the PORT's renderer makes on the CPU (`viorb_tpu_torch.io.synthetic.
@@ -998,9 +999,96 @@ def make_stereo() -> dict:
     return out
 
 
+CLI_GOLDEN = os.path.join(HERE, "torch_cli_golden.npz")
+CLI_DOC = """The reference's command line (`viorb_tpu.run.main`) over a TUM RGB-D dump
+at tests/torch_port_scene.py's half size: the first CLI_CONFIG["n_frames"]
+frames of the arc of "half" above (the 376x240 camera, dt=0.2 s) rendered
+on the CPU by the PORT's renderer with their depth images, the images
+rounded to uint8 and the depth to uint16 at TUM's 5000 units a metre, and
+written by the port's `io/png.py` as rgb/*.png and depth/*.png with an
+associations.txt and a settings file (300 features, DepthMapFactor 5000)
+(`write_cli_dump`); then `--dataset tum --rgbd`. It records the trajectory
+file the run writes, its metric ATE (SE3) to the renderer's truth, and the
+SHA-256 of the dump's uint8 and uint16 arrays: tests/test_torch_run_cli.py
+writes its own dump the same way and checks the digest first, so both
+packages' runs read the same integers."""
+CLI_CONFIG = dict(CONFIGS["half"], n_frames=8, depth_factor=5000.0)
+
+
+def cli_settings() -> str:
+    """The dump's settings file (the reference's YAML schema)."""
+    c = CLI_CONFIG
+    return ("%YAML:1.0\n"
+            f"Camera.fx: {c['fx']}\nCamera.fy: {c['fx']}\nCamera.cx: {c['cx']}\nCamera.cy: {c['cy']}\n"
+            "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+            f"Camera.width: {c['width']}\nCamera.height: {c['height']}\n"
+            "Camera.fps: 5.0\nCamera.RGB: 0\n"
+            f"DepthMapFactor: {c['depth_factor']}\nORBextractor.nFeatures: {c['n_features']}\n")
+
+
+def write_cli_dump(root: str) -> dict:
+    """CLI_DOC's TUM RGB-D dump under `root` (rgb/, depth/,
+    associations.txt, settings.yaml); returns the sequence, the uint8 images,
+    the uint16 depth images and their SHA-256 digest."""
+    import hashlib
+
+    from viorb_tpu_torch.geometry.camera import PinholeCamera
+    from viorb_tpu_torch.io import synthetic
+    from viorb_tpu_torch.io.png import write_png
+
+    c = CLI_CONFIG
+    cam = PinholeCamera(fx=c["fx"], fy=c["fx"], cx=c["cx"], cy=c["cy"], width=c["width"], height=c["height"])
+    seq, depths = synthetic.make_sequence(c["n_frames"], cam=cam, dt=c["dt"], device="cpu", with_depth=True)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    images = [synthetic.to_uint8(im).numpy() for im in seq.images]
+    depth16 = [np.clip(np.round(d.numpy() * c["depth_factor"]), 0, 65535).astype(np.uint16) for d in depths]
+    digest = hashlib.sha256()
+    lines = []
+    for i, (img, dep, ts) in enumerate(zip(images, depth16, seq.timestamps)):
+        write_png(os.path.join(root, f"rgb/{i:04d}.png"), img)
+        write_png(os.path.join(root, f"depth/{i:04d}.png"), dep)
+        digest.update(img.tobytes())
+        digest.update(dep.tobytes())
+        lines.append(f"{ts:.6f} rgb/{i:04d}.png {ts:.6f} depth/{i:04d}.png")
+    with open(os.path.join(root, "associations.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write(cli_settings())
+    return {"seq": seq, "images": images, "depth16": depth16, "digest": digest.hexdigest()}
+
+
+def cli_argv(root: str, out: str) -> list:
+    """The command line both packages' runs take over the dump."""
+    return ["--dataset", "tum", "--rgbd", "--path", root, "--config", os.path.join(root, "settings.yaml"),
+            "--out", out]
+
+
+def make_cli() -> dict:
+    import tempfile
+
+    from viorb_tpu import run
+    from viorb_tpu.eval.ate import ate_rmse
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = write_cli_dump(tmp)
+        out = os.path.join(tmp, "traj.txt")
+        run.main(cli_argv(tmp, out))
+        traj = np.loadtxt(out)
+    seq = dump["seq"]
+    return {
+        "reference_commit": np.array(reference_commit()),
+        "traj": traj,
+        "ate": np.float64(ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=False)),
+        "digest": np.array(dump["digest"]),
+        "config": np.array(sorted(CLI_CONFIG.items()), dtype=str),
+    }
+
+
 SETS = {"mono": (GOLDEN, lambda: make_mono()), "vi": (VI_GOLDEN, lambda: make_vi()),
         "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim()),
-        "loop": (LOOP_GOLDEN, lambda: make_loop()), "stereo": (STEREO_GOLDEN, lambda: make_stereo())}
+        "loop": (LOOP_GOLDEN, lambda: make_loop()), "stereo": (STEREO_GOLDEN, lambda: make_stereo()),
+        "cli": (CLI_GOLDEN, lambda: make_cli())}
 
 
 def spread(data: dict) -> list:
@@ -1071,6 +1159,9 @@ def main(argv) -> int:
                 print(f"{run}: {int((data[run + '_state'] == 1).sum())} frames OK, "
                       f"{int(data[run + '_n_kfs'][-1])} keyframes, {int(data[run + '_n_points'][-1])} points, "
                       f"metric ATE {float(data[run + '_ate']):.4f} m")
+        if name == "cli":
+            print(f"cli: {len(data['traj'])} trajectory rows, metric ATE {float(data['ate']):.4f} m, "
+                  f"dump digest {data['digest']}")
         if name == "vi":
             for cfg in VI_CONFIGS:
                 print(f"{cfg}: VI init at frame {int(data[cfg + '_init_frame'])}, "

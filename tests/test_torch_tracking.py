@@ -100,13 +100,31 @@ def _interop_carries_reference_state(scene, gold):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# made unimportable in the subprocess: the GPU host has no JAX (nor the JAX
+# package, which imports it), and the port's command line and I/O need no
+# image or plotting library
+_BLOCKED = ("jax", "jaxlib", "viorb_tpu", "matplotlib", "PIL", "yaml", "cv2", "torchvision")
+
+
 def _port_imports_no_jax():
-    """Every port module imports without JAX or the JAX package: the GPU
-    host has neither. The walk reaches the map store, its checkpoints and
-    native helpers, the ATE, PnP, MonoSlam, the VI modules and the loop
-    closing modules too, and the port reads its own vocabulary asset."""
+    """Every port module imports with JAX, the JAX package, matplotlib, PIL,
+    yaml, cv2 and torchvision made unimportable: the GPU host has no JAX,
+    and the port counts on none of the others there. The walk reaches the map store, its checkpoints and native
+    helpers, the ATE, PnP, MonoSlam, the VI modules, the loop closing
+    modules and the command line, its I/O, viewer and tools too, and the
+    port reads its own vocabulary asset. Then the command line runs on the
+    CPU over a two-frame TUM RGB-D dump written by io/png.py, with the
+    viewer and every output on (what it drives needs none of the blocked
+    packages), and without --device it raises on a host with no card."""
     code = (
-        "import pkgutil, importlib, sys, viorb_tpu_torch\n"
+        "import importlib.abc, sys\n"
+        f"BLOCKED = {_BLOCKED!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ModuleNotFoundError(f'{name} is made unimportable here', name=name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import pkgutil, importlib, viorb_tpu_torch\n"
         "for m in pkgutil.walk_packages(viorb_tpu_torch.__path__, 'viorb_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'viorb_tpu.'))"
@@ -119,10 +137,44 @@ def _port_imports_no_jax():
         "       'eval.ate', 'solvers.pnp', 'slam.mono', 'io.synthetic', 'imu.types', 'imu.navstate',\n"
         "       'imu.preintegration', 'optim.imu_factors', 'slam.vi_init', 'slam.mono_vi', 'eval.gravity',\n"
         "       'geometry.sim3', 'solvers.sim3_solver', 'optim.sim3_refine', 'optim.pose_graph', 'bow',\n"
-        "       'bow.vocabulary', 'bow.database', 'bow.descend_cuda', 'slam.loop_closing')]\n"
+        "       'bow.vocabulary', 'bow.database', 'bow.descend_cuda', 'slam.loop_closing', 'run', '__main__',\n"
+        "       'io.config', 'io.png', 'io.datasets', 'io.trajectory', 'io.stream', 'io.live', 'viz',\n"
+        "       'viz.drawers', 'eval.plot_init', 'bow.build_asset')]\n"
         "from viorb_tpu_torch.bow import default_vocabulary\n"
         "assert default_vocabulary().n_words == 1000\n"
         "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
+        "import os, tempfile, numpy as np\n"
+        "from viorb_tpu_torch import run\n"
+        "from viorb_tpu_torch.io.png import read_png, write_png\n"
+        "tmp = tempfile.TemporaryDirectory()  # removed at exit, also after a failure\n"
+        "d = tmp.name\n"
+        "os.mkdir(d + '/rgb'); os.mkdir(d + '/depth')\n"
+        "rng = np.random.default_rng(0)\n"
+        "tex = rng.uniform(0, 255, (60, 94)).repeat(4, 0).repeat(4, 1)[:240, :376]\n"
+        "for i in range(2):\n"
+        "    write_png(f'{d}/rgb/{i}.png', np.roll(tex, i, 1).astype(np.uint8))\n"
+        "    write_png(f'{d}/depth/{i}.png', np.full((240, 376), 10000, np.uint16))\n"
+        "open(d + '/associations.txt', 'w').write('0.0 rgb/0.png 0.0 depth/0.png\\n0.1 rgb/1.png 0.1 depth/1.png\\n')\n"
+        "open(d + '/s.yaml', 'w').write('%YAML:1.0\\nCamera.fx: 225.0\\nCamera.fy: 225.0\\nCamera.cx: 188.0\\n'\n"
+        "    'Camera.cy: 120.0\\nCamera.width: 376\\nCamera.height: 240\\nORBextractor.nFeatures: 150\\n')\n"
+        "argv = ['--dataset', 'tum', '--rgbd', '--path', d, '--config', d + '/s.yaml', '--out', d + '/t.txt',\n"
+        "        '--out-kf', d + '/kf.txt', '--out-kitti', d + '/k.txt', '--save-map', d + '/m.npz',\n"
+        "        '--viz-dir', d + '/viz', '--viz-every', '1']\n"
+        "slam = run.main(argv + ['--device', 'cpu'])\n"
+        "assert np.loadtxt(d + '/t.txt', ndmin=2).shape == (2, 8) and np.loadtxt(d + '/k.txt', ndmin=2).shape[1] == 12\n"
+        "pngs = sorted(os.listdir(d + '/viz'))\n"
+        "assert pngs == ['frame_00000.png', 'frame_00001.png', 'map_00000.png', 'map_final.png'], pngs\n"
+        "assert all(read_png(d + '/viz/' + f).ndim == 3 for f in pngs) and os.path.exists(d + '/m.npz')\n"
+        "import torch\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        run.main(argv)\n"
+        "        raise AssertionError('the command line ran without --device on a host with no card')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
+        "tmp.cleanup()\n"
         "print(len([m for m in sys.modules if m.startswith('viorb_tpu_torch')]))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

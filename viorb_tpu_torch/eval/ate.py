@@ -1,10 +1,13 @@
 """Trajectory evaluation: ATE RMSE with SE3/Sim3 (Umeyama) alignment (port
-of viorb_tpu/eval/ate.py without its command line, numpy as there).
+of viorb_tpu/eval/ate.py, numpy as there).
 
 Counterpart of the reference's evaluate_viorb/ Python-2 scripts
 (associate.py + TUM evaluate_ate; reference evaluate_viorb/), as a library:
 associate by timestamp, align (mono needs Sim3 — scale is unobservable),
 report RMSE.
+
+Usage:
+  python -m viorb_tpu_torch.eval.ate est.txt gt.txt [--scale] [--max-dt S]
 """
 
 from __future__ import annotations
@@ -69,3 +72,48 @@ def ate_rmse(
     s, R, t = umeyama_alignment(x, y, with_scale)
     err = y - (s * (x @ R.T) + t)
     return float(np.sqrt((err**2).sum(1).mean()))
+
+
+def _load_tum(path: str):
+    rows = np.loadtxt(path, comments="#", ndmin=2)
+    return rows[:, 0], rows[:, 1:4]
+
+
+def main(argv=None):
+    """CLI: absolute trajectory error between two TUM files (reference
+    evaluate_viorb/evaluate_ate_scale.py — associate by timestamp,
+    Umeyama-align, report RMSE; --scale also reports the recovered
+    alignment scale, the reference's mono-scale diagnostic)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="ATE between an estimated and ground-truth TUM trajectory"
+    )
+    ap.add_argument("est", help="estimated trajectory (TUM: t x y z qx qy qz qw)")
+    ap.add_argument("gt", help="ground-truth trajectory (TUM)")
+    ap.add_argument("--scale", action="store_true",
+                    help="Sim3 alignment (mono): also print recovered scale")
+    ap.add_argument("--max-dt", type=float, default=0.02,
+                    help="association timestamp window (s)")
+    args = ap.parse_args(argv)
+    t_e, xyz_e = _load_tum(args.est)
+    t_g, xyz_g = _load_tum(args.gt)
+    ia, ib = associate(t_e, t_g, max_dt=args.max_dt)
+    if len(ia) < 3:
+        raise SystemExit(f"only {len(ia)} associations (max_dt={args.max_dt})")
+    x, y = xyz_e[ia], xyz_g[ib]
+    s, R, t = umeyama_alignment(x, y, with_scale=args.scale)
+    err = np.sqrt(((y - (s * (x @ R.T) + t)) ** 2).sum(1))
+    print(f"compared_pose_pairs {len(ia)} pairs")
+    print(f"absolute_translational_error.rmse {np.sqrt((err**2).mean()):.6f} m")
+    print(f"absolute_translational_error.mean {err.mean():.6f} m")
+    print(f"absolute_translational_error.median {np.median(err):.6f} m")
+    print(f"absolute_translational_error.std {err.std():.6f} m")
+    print(f"absolute_translational_error.min {err.min():.6f} m")
+    print(f"absolute_translational_error.max {err.max():.6f} m")
+    if args.scale:
+        print(f"alignment_scale {s:.6f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """The map store's host helpers in C++ (port of viorb_tpu/native): the
 covisibility count, the union of keyframes' points, the BA observation
-grid and the per-point statistics refresh.
+grid and the per-point statistics refresh; and `png_unfilter.cpp`, the PNG
+row reconstruction of `io/png.py` (the port's own, no counterpart there).
 
-`map_index.cpp` is built with g++ at first use into
-`<repo>/build/viorb_tpu_torch/libmap_index.so` (git-ignored), again whenever
+Each source is built with g++ at first use into
+`<repo>/build/viorb_tpu_torch/lib<name>.so` (git-ignored), again whenever
 the source is newer, and bound with ctypes. A failed build raises: there is
 no numpy fallback here. The numpy loop that specifies `update_point_stats`
 lives in `mapping/map.py::update_point_stats_numpy`, as the tests' oracle.
@@ -33,7 +34,11 @@ _ARGTYPES = {
     "update_point_stats": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
 }
 
-_lib = None
+_PNG_ARGTYPES = {"png_unfilter": [_P, _I64, _I64, _I64, _P]}
+PNG_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "png_unfilter.cpp")
+PNG_LIB_PATH = os.path.join(BUILD_DIR, "libpng_unfilter.so")
+
+_libs: dict = {}  # library path -> ctypes.CDLL
 _lock = threading.Lock()
 
 
@@ -48,22 +53,33 @@ def build(src: str = SRC, lib_path: str = LIB_PATH) -> None:
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
 
 
-def get_lib() -> ctypes.CDLL:
-    """The loaded library, built first if missing or stale."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def _load(src: str, lib_path: str, argtypes: dict, restype=None) -> ctypes.CDLL:
+    """The library built from `src`, built first if missing or stale."""
+    lib = _libs.get(lib_path)
+    if lib is not None:
+        return lib
     with _lock:
-        if _lib is None:
-            if not os.path.exists(LIB_PATH) or os.path.getmtime(LIB_PATH) < os.path.getmtime(SRC):
-                build()
-            lib = ctypes.CDLL(LIB_PATH)
-            for name, argtypes in _ARGTYPES.items():
+        if lib_path not in _libs:
+            if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src):
+                build(src, lib_path)
+            lib = ctypes.CDLL(lib_path)
+            for name, types in argtypes.items():
                 fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = None
-            _lib = lib
-    return _lib
+                fn.argtypes = types
+                fn.restype = restype
+            _libs[lib_path] = lib
+    return _libs[lib_path]
+
+
+def get_lib() -> ctypes.CDLL:
+    """The map helpers' library, built first if missing or stale."""
+    return _load(SRC, LIB_PATH, _ARGTYPES)
+
+
+def get_png_lib() -> ctypes.CDLL:
+    """The PNG row reconstruction's library, built first if missing or
+    stale."""
+    return _load(PNG_SRC, PNG_LIB_PATH, _PNG_ARGTYPES, restype=_I64)
 
 
 def _c(a: np.ndarray, dtype) -> np.ndarray:
