@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's monocular tracking cores, mapping
 functions, lock-step, async and streaming SLAM, lock-step and async
-monocular-inertial SLAM, place recognition and loop closing, lock-step
-stereo and RGB-D SLAM, and its command line on one NVIDIA GPU.
+monocular-inertial SLAM, place recognition and loop closing, lock-step and
+threaded stereo and RGB-D SLAM, its command line and its distributed bundle
+adjustment on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -129,9 +130,11 @@ Phases, in order; any failure raises and exits non-zero:
      closing fed at the camera's rate (the loop closes, the post-loop GBA
      runs in the loop job on the mapping worker, the run ends OK with its
      Sim3 ATE within tests/test_streaming.py's threaded envelope of the
-     lock-step loop run's, max(5x, 0.20 m); the tracker's longest frame and
-     its frames around the closure printed: the job holds the map lock
-     across the closure and its GBA), async MonoViSlam with loop closing at
+     lock-step loop run's, max(5x, 0.20 m), both enforced: the worker
+     runs every job's local BA, which keeps the revisit's turn refined while
+     rejected Sim3 verifications hold the worker; the tracker's longest
+     frame and its frames around the closure printed: the job holds the map
+     lock across the closure and its GBA), async MonoViSlam with loop closing at
      the camera's rate (the loop closes, the VI post-loop GBA runs in the
      loop job on the mapping worker, Sim3 ATE within max(5x the lock-step
      VI loop run's, 0.20 m), the loop job and the tracker's longest frame
@@ -158,7 +161,13 @@ Phases, in order; any failure raises and exits non-zero:
      launches = right extractions, every local BA a graph replay (the
      stereo ones as "stereo_local"), host ms a frame by kind (init,
      keyframe, steady), no kernel build, library load or graph capture off
-     the main thread;
+     the main thread. Then the threaded modes over the same arc, fed at the
+     camera's 10 fps: async StereoSlam, streaming StereoSlam (which the
+     reference's stereo entry runs as async: no collector thread) and
+     async RgbdSlam, each ending OK with >= 80 % of frames tracked and its
+     metric ATE within max(5x the lock-step run's, 0.20 m), the lock-step
+     contract's numbers printed beside it, every mapping job on the
+     worker, the same launch, replay and main-thread checks;
  11. the command line: `python -m viorb_tpu_torch` (viorb_tpu_torch/run.py)
      at full width over dumps written under a temporary directory from the
      port's renderer (8-bit PNG images and 16-bit PNG depth through
@@ -188,7 +197,27 @@ Phases, in order; any failure raises and exits non-zero:
      warm-up calls of a capture made in the run apart), no kernel build,
      library load or graph capture off the main thread, no thread left
      running;
- 12. time the fused launch, the 8 single-level launches, their plain
+ 12. distributed bundle adjustment (viorb_tpu_torch/parallel) at
+     bench_scaling.py's problem (K = 12 poses, M = 8192 landmarks, R = 8
+     observations each, 10 LM iterations, vision and VI): the port's
+     single-device vision_ba / vi_ba on the card, then distributed_vision_ba
+     / distributed_vi_ba at world size 1 on NCCL in a child process and
+     with two gloo ranks on the one card, CUDA tensors, in two child
+     processes (each waited for with a timeout and killed past it), every
+     child joining through the port's own init code, which binds the card:
+     the ranks' poses equal bit for bit, within tests/test_distributed_ba.py's
+     tolerances of the single-device solve, the whole problem's cost
+     falls; ms an iteration of each and the bytes all-reduced an
+     iteration. bench_scaling.py's VI chain is invalid (structure only), so
+     each run also solves tests/test_distributed_ba.py's VI problem, whose
+     chain is live: the ranks equal bit for bit, within 5e-4 m / 1e-3 m/s
+     of the card's single-device solve (an IMU system added on every rank
+     before the all-reduce would be ~1.5e-3 m off) and within that test's
+     tolerances of the JAX package's distributed solve
+     (tests/torch_parallel_golden.npz). NCCL refuses two ranks on one
+     device, so its multi-rank path waits for a machine with two or more
+     GPUs;
+ 13. time the fused launch, the 8 single-level launches, their plain
      versions and an empty kernel launch (device time, host run ahead),
      the wrappers back to back on the host clock, the extract / match /
      pose-LM stages per frame, each core as a graph over a 200-frame
@@ -216,6 +245,7 @@ import sys
 import threading
 import time
 import warnings
+from typing import Tuple
 
 N_FRAMES = 16  # frame 0 builds the map, frames 1-15 are tracked
 MAP_SLOTS = 4096
@@ -2138,6 +2168,11 @@ def _loop_phase(cam, dev, tag: str) -> tuple:
     finally:
         asy.shutdown()
     a_ate = ate_rmse(traj[:, 0], traj[:, 1:4], seq.timestamps, seq.c_w, with_scale=True)
+    ia, ib = associate(traj[:, 0], seq.timestamps)
+    a_s, a_r, a_t = umeyama_alignment(traj[ia, 1:4], seq.c_w[ib], with_scale=True)
+    a_err = np.linalg.norm(seq.c_w[ib] - (a_s * traj[ia, 1:4] @ a_r.T + a_t), axis=1)
+    print(f"{tag} MonoSlam async with loop closing: frames more than 10 cm off after the run's Sim3 alignment "
+          + (", ".join(f"{int(f)}: {e * 100:.0f} cm" for f, e in zip(ib, a_err) if e > 0.10) or "none"))
     # the tracker thread's longest frame beside the loop job on the worker:
     # the job holds the map lock from the BoW to the end of the closure, the
     # post-loop GBA included, so the tracker waits for the correction
@@ -2327,25 +2362,34 @@ def _stereo_phase(cam, dev, tag: str) -> dict:
     k9 = _k9_check(cam, dev, seq, right, tag)
     k1, k8, k9_paths = {}, {}, {}
 
-    def drive(label, slam, frames, step):
+    def drive(label, slam, frames, step, stamps=None):
         """Every frame through `slam` with the K1, K8 and K9 counters set to
         0 just before; checks K1 = frames + right extractions and K9 = right
         extractions, except in a warm-up run (a core's first call warms up
-        eagerly and captures) and in MonoSlam's run for comparison. Per
-        frame (info, host ms, kind)."""
+        eagerly and captures) and in MonoSlam's run for comparison. With
+        `stamps` (the frames' timestamps) each frame is fed at its time (the
+        camera's rate) and a threaded run is drained and stopped at the end.
+        Per frame (info, host ms, kind)."""
         core = make_pipeline_track_core(cam, slam.extractor)
         core.reset_counts()
         fast_cuda.LAUNCHES = fast_cuda.CELL_LAUNCHES = 0
         descend_cuda.LAUNCHES_K8 = descend_cuda.LAUNCHES_K8_GLOBAL = 0
         stereo_cuda.LAUNCHES_K9 = 0
         rows = []
-        for i in frames:
-            kfs = slam.map._next_kf
-            t0 = time.perf_counter()
-            info = step(i)  # ends in a pull: the host clock is honest
-            ms = (time.perf_counter() - t0) * 1e3
-            kind = "init" if kfs == 0 else "keyframe" if slam.map._next_kf > kfs else "steady"
-            rows.append((info, ms, kind))
+        t_start = time.perf_counter()
+        try:
+            for i in frames:
+                if stamps is not None:
+                    time.sleep(max(0.0, t_start + float(stamps[i] - stamps[frames[0]]) - time.perf_counter()))
+                kfs = slam.map._next_kf
+                t0 = time.perf_counter()
+                info = step(i)  # ends in a pull: the host clock is honest
+                ms = (time.perf_counter() - t0) * 1e3
+                kind = "init" if kfs == 0 else "keyframe" if slam.map._next_kf > kfs else "steady"
+                rows.append((info, ms, kind))
+            slam.wait_mapping_idle()
+        finally:
+            slam.shutdown()
         right_x = getattr(slam, "right_extractions", 0)
         n = core.launches()["CELL_LAUNCHES"] + fast_cuda.CELL_LAUNCHES
         print(f"{label}: K1 launches {n} ({core.launches()['CELL_LAUNCHES']} in {core.replays} graph replays + "
@@ -2388,16 +2432,23 @@ def _stereo_phase(cam, dev, tag: str) -> dict:
         slam = StereoSlam(cam, baseline=STEREO_BASELINE, device=dev, **STEREO_CONFIG)
         infos = drive(label, slam, range(STEREO_FRAMES),
                       lambda i: slam.process_frame_stereo(seq.images[i], right[i], float(seq.timestamps[i])))
-    n_ok = sum(r["state"] == "OK" for r in infos)
-    traj, ate, span = metric(slam, seq)
-    steady = traj[:, 0] >= 2.0
-    ate_ss = ate_rmse(traj[steady, 0], traj[steady, 1:4], seq.timestamps, seq.c_w, with_scale=False)
-    print(f"{tag} StereoSlam lock-step, {STEREO_FRAMES} rendered {cam.width}x{cam.height} pairs at dt={STEREO_DT}: "
-          f"{n_ok} frames OK, final {infos[-1]}, metric ATE {ate:.4f} m, from 2 s {ate_ss:.4f} m, scale ratio "
-          f"{span:.4f}; stereo matches at the keyframes {[r['n_stereo'] for r in infos if r['n_stereo']]}")
-    _check(infos[-1]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and ate < 0.09 and ate_ss < 0.02
-           and 0.97 < span < 1.03, f"StereoSlam misses tests/test_e2e_stereo.py's contract: {n_ok} OK, "
-           f"ATE {ate:.4f} / {ate_ss:.4f} m, ratio {span:.4f}")
+    def stereo_contract(label, slam, infos):
+        """tests/test_e2e_stereo.py's contract numbers of a run over the arc
+        and whether they meet it."""
+        n_ok = sum(r["state"] == "OK" for r in infos)
+        traj, ate, span = metric(slam, seq)
+        steady = traj[:, 0] >= 2.0
+        ate_ss = ate_rmse(traj[steady, 0], traj[steady, 1:4], seq.timestamps, seq.c_w, with_scale=False)
+        met = (infos[-1]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and ate < 0.09 and ate_ss < 0.02
+               and 0.97 < span < 1.03)
+        print(f"{tag} {label}, {STEREO_FRAMES} rendered {cam.width}x{cam.height} pairs at dt={STEREO_DT}: "
+              f"{n_ok} frames OK, final {infos[-1]}, metric ATE {ate:.4f} m, from 2 s {ate_ss:.4f} m, scale ratio "
+              f"{span:.4f}; stereo matches at the keyframes {[r['n_stereo'] for r in infos if r['n_stereo']]}; "
+              f"tests/test_e2e_stereo.py's contract met: {met}")
+        return n_ok, ate, met
+
+    n_ok, stereo_ate, met = stereo_contract("StereoSlam lock-step", slam, infos)
+    _check(met, "StereoSlam lock-step misses tests/test_e2e_stereo.py's contract")
 
     # what a keyframe adds in stereo: the pair's match (right extraction,
     # undistortion, match_stereo, K9, one pull) on the arc's last frame,
@@ -2433,12 +2484,58 @@ def _stereo_phase(cam, dev, tag: str) -> dict:
     slam = RgbdSlam(cam, device=dev, **RGBD_CONFIG)
     infos = drive("RgbdSlam", slam, range(STEREO_FRAMES),
                   lambda i: slam.process_frame_rgbd(rseq.images[i], depths[i], float(rseq.timestamps[i])))
-    n_ok = sum(r["state"] == "OK" for r in infos)
-    _, ate, _ = metric(slam, rseq)
-    print(f"{tag} RgbdSlam lock-step, {STEREO_FRAMES} frames: frame 0 {infos[0]['state']}, {n_ok} frames OK, "
-          f"final {infos[-1]}, metric ATE {ate:.4f} m")
-    _check(infos[0]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and infos[-1]["n_points"] > 300 and ate < 0.05,
-           f"RgbdSlam misses tests/test_e2e_rgbd.py's contract: {n_ok} OK, final {infos[-1]}, ATE {ate:.4f} m")
+
+    def rgbd_contract(label, slam, infos):
+        """tests/test_e2e_rgbd.py's contract numbers and whether they meet it."""
+        n_ok = sum(r["state"] == "OK" for r in infos)
+        _, ate, _ = metric(slam, rseq)
+        met = infos[0]["state"] == "OK" and n_ok > 0.9 * STEREO_FRAMES and infos[-1]["n_points"] > 300 and ate < 0.05
+        print(f"{tag} {label}, {STEREO_FRAMES} frames: frame 0 {infos[0]['state']}, {n_ok} frames OK, "
+              f"final {infos[-1]}, metric ATE {ate:.4f} m; tests/test_e2e_rgbd.py's contract met: {met}")
+        return n_ok, ate, met
+
+    n_ok, rgbd_ate, met = rgbd_contract("RgbdSlam lock-step", slam, infos)
+    _check(met, "RgbdSlam lock-step misses tests/test_e2e_rgbd.py's contract")
+
+    # the threaded modes, fed at the camera's 10 fps: async StereoSlam and
+    # RgbdSlam, then a streaming StereoSlam, which the reference's stereo
+    # entry runs as async (synchronous tracking beside the mapping worker)
+    threaded = (
+        ("StereoSlam async", dict(async_mapping=True), stereo_contract, stereo_ate),
+        ("StereoSlam streaming", dict(streaming=True), stereo_contract, stereo_ate),
+        ("RgbdSlam async", dict(async_mapping=True), rgbd_contract, rgbd_ate),
+    )
+    for label, mode, contract, lock_ate in threaded:
+        if label.startswith("Stereo"):
+            slam = StereoSlam(cam, baseline=STEREO_BASELINE, device=dev, **mode, **STEREO_CONFIG)
+            frames_of, step = seq, lambda i: slam.process_frame_stereo(seq.images[i], right[i],
+                                                                      float(seq.timestamps[i]))
+        else:
+            slam = RgbdSlam(cam, device=dev, **mode, **RGBD_CONFIG)
+            frames_of, step = rseq, lambda i: slam.process_frame_rgbd(rseq.images[i], depths[i],
+                                                                     float(rseq.timestamps[i]))
+        names = set()
+        run_job = slam._mapping_job
+
+        def job(kf_id, run_job=run_job):
+            names.add(threading.current_thread().name)
+            return run_job(kf_id)
+
+        slam._mapping_job = job
+        _check(slam.async_mapping and not slam.streaming, f"{label}: the threaded flags must mean async mapping")
+        infos = drive(label, slam, range(STEREO_FRAMES), step, stamps=frames_of.timestamps)
+        n_ok, ate, met = contract(label, slam, infos)
+        bound = max(5.0 * lock_ate, 0.20)
+        print(f"{tag} {label} at the camera's rate: {n_ok} of {STEREO_FRAMES} frames OK, metric ATE {ate:.4f} m "
+              f"against the threaded envelope {bound:.4f} m (max(5 x the lock-step run's {lock_ate:.4f}, 0.20)); "
+              f"{len(slam.job_times)} mapping jobs on threads {sorted(names)}, no collector thread: "
+              f"{slam._collector is None}; the lock-step contract met: {met}")
+        _check(infos[-1]["state"] == "OK" and n_ok >= 0.8 * STEREO_FRAMES and ate <= bound,
+               f"{label}: the run must end OK with >= 80 % of frames tracked and meet the threaded envelope")
+        _check(names == {"viorb-mapping"} and slam.job_times and slam._collector is None
+               and not any(t.name == "viorb-collector" for t in threading.enumerate()),
+               f"{label}: every job on the mapping worker, no collector thread: {names}")
+        _check_main_thread_only(label)
 
     # tests/test_e2e_stereo_loop.py: the noisy circuit, its vocabulary
     lseq, lright = synthetic.make_stereo_sequence(LOOP_FRAMES, cam=cam, dt=LOOP_DT, baseline=STEREO_BASELINE,
@@ -2972,6 +3069,296 @@ def _cli_phase(cam, dev, tag: str) -> dict:
     print(f"{tag} the command line phase: {time.perf_counter() - t_phase:.1f} s of host time")
     return dict(k1=k1, k8=k8, k9=k9)
 
+
+# ---- phase 12: distributed bundle adjustment --------------------------------
+
+DIST_K, DIST_M, DIST_R, DIST_ITERS = 12, 8192, 8, 10  # bench_scaling.py's problem
+DIST_TIMEOUT = 300  # seconds a child process may take before it is killed
+
+
+def _dist_problem(dev) -> dict:
+    """bench_scaling.py's landmark-sharded BA problem, seeded as it seeds it:
+    K = 12 poses 0.15 m apart, M = 8192 landmarks, each seen from R = 8
+    random keyframes with 0.3 px noise, the points perturbed by 3 cm; the
+    VI problem on the same landmarks, NavStates at the same poses and an
+    11-edge chain of identity preintegrations (dt 0.5 s, every edge invalid:
+    structure only, as bench_scaling.py has it). All on `dev`."""
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.geometry.camera import PinholeCamera
+    from viorb_tpu_torch.imu import ImuNoise, NavState, PreintegratedImu
+    from viorb_tpu_torch.optim.ba import BAObservations, ImuChain, ViBAState, VisionBAState
+    from viorb_tpu_torch.optim.reprojection import Extrinsics
+
+    cam = PinholeCamera(fx=450.0, fy=450.0, cx=376.0, cy=240.0)
+    rng = np.random.default_rng(0)
+    k, m, r = DIST_K, DIST_M, DIST_R
+    pts = np.stack([rng.uniform(-4, 4, m), rng.uniform(-3, 3, m), rng.uniform(4, 10, m)], 1).astype(np.float32)
+    t_k = np.stack([np.array([0.15 * i, 0, 0], np.float32) for i in range(k)])
+    r_k = np.broadcast_to(np.eye(3, dtype=np.float32), (k, 3, 3)).copy()
+    kf_idx = rng.integers(0, k, (m, r)).astype(np.int64)
+    pc = pts[:, None, :] + t_k[kf_idx]
+    uv = np.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx, cam.fy * pc[..., 1] / pc[..., 2] + cam.cy],
+                  axis=-1).astype(np.float32)
+    uv = uv + rng.normal(size=uv.shape).astype(np.float32) * 0.3
+    p0 = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.03
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    obs = BAObservations(up(kf_idx), up(uv), torch.ones((m, r), device=dev), torch.ones((m, r), dtype=torch.bool,
+                                                                                        device=dev))
+    fixed = torch.zeros(k, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    z = torch.zeros((k, 3), device=dev)
+    nav = NavState(up(-t_k), z, up(r_k), z.clone(), z.clone(), z.clone(), z.clone())
+    pre = PreintegratedImu.identity((k - 1,), device=dev)._replace(
+        dt=torch.full((k - 1,), 0.5, device=dev), cov=(torch.eye(9, device=dev) * 1e-4).expand(k - 1, 9, 9).contiguous())
+    noise = ImuNoise()
+    chain = ImuChain(pre, torch.zeros(k - 1, dtype=torch.bool, device=dev),
+                     up(np.r_[[1.0 / noise.gyro_bias_rw_var] * 3, [1.0 / noise.acc_bias_rw_var] * 3].astype(np.float32)
+                        * np.float32(0.005)))
+    return dict(cam=cam, obs=obs, fixed=fixed, vision=VisionBAState(up(r_k), up(t_k), up(p0)),
+                vi=ViBAState(nav, up(p0)), ext=Extrinsics(torch.eye(3, device=dev), torch.zeros(3, device=dev)),
+                chain=chain, gravity=torch.tensor([0.0, 0.0, -9.81], device=dev))
+
+
+def _parallel_golden() -> dict:
+    """tests/torch_parallel_golden.npz: tests/test_distributed_ba.py's two
+    problems and the JAX package's distributed solves of them."""
+    import numpy as np
+
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_parallel_golden.npz"),
+                 allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _timed_runs(fn, sync) -> Tuple[object, float]:
+    """fn() once to warm up, then once more timed on the host clock between
+    two drains of the card (`sync`); returns the second result and its ms."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _distributed_child(argv) -> int:
+    """One rank of phase 12 (`chip_smoke.py --distributed-child BACKEND WORLD
+    RANK PORT OUT [DEVICE]`, DEVICE cuda:0 by default): joins the run through
+    the port's own code (`initialize`, or `join_process_group` for a world of
+    one, which `initialize` leaves alone; either binds the card), takes its
+    landmark rows, runs the distributed vision and VI BAs once to warm up and
+    once timed, then the distributed VI BA on tests/torch_parallel_golden.npz's
+    VI problem (a live IMU chain), and writes its solved states and times to
+    OUT (.npz)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from viorb_tpu_torch import interop
+    from viorb_tpu_torch.imu.navstate import NavState
+    from viorb_tpu_torch.optim.ba import ViBAState, VisionBAState
+    from viorb_tpu_torch.optim.reprojection import Extrinsics
+    from viorb_tpu_torch.parallel import (distributed_vi_ba, distributed_vision_ba, host_local_slice, initialize,
+                                          landmark_mesh, shard_observations)
+    from viorb_tpu_torch.parallel.multihost import join_process_group
+
+    backend, world, rank, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    dev = torch.device(argv[5] if len(argv) > 5 else "cuda")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    coordinator = f"127.0.0.1:{port}"
+    if world == 1:
+        join_process_group(coordinator, 1, 0, backend)
+    else:
+        assert initialize(coordinator=coordinator, num_processes=world, process_id=rank, backend=backend)
+    mesh = landmark_mesh(device="cpu" if dev.type == "cpu" else None)
+    assert mesh.device == dev, (mesh.device, dev)  # the card the port bound
+    prob = _dist_problem(dev)
+    rows = host_local_slice(DIST_M, mesh)
+    obs = shard_observations(prob["obs"], mesh)
+    vis0, vi0 = prob["vision"], prob["vi"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    vis, vis_ms = _timed_runs(lambda: distributed_vision_ba(
+        VisionBAState(vis0.r_cw, vis0.t_cw, vis0.points[rows]), obs, prob["cam"], prob["fixed"], mesh,
+        iters=DIST_ITERS), sync)
+    vi, vi_ms = _timed_runs(lambda: distributed_vi_ba(
+        ViBAState(vi0.nav, vi0.points[rows]), obs, prob["cam"], prob["ext"], prob["chain"], prob["gravity"],
+        prob["fixed"], mesh, iters=DIST_ITERS), sync)
+    g = _parallel_golden()
+    live_rows = host_local_slice(len(g["vi_points0"]), mesh)
+    nav = {f: g[f"vi_nav0_{f}"] for f in NavState._fields}
+    pre = {k[len("vi_pre_"):]: v for k, v in g.items() if k.startswith("vi_pre_")}
+    live = distributed_vi_ba(
+        interop.vi_ba_state_from_numpy(nav, g["vi_points0"][live_rows], device=dev),
+        interop.ba_observations_from_numpy(*(g[f"vi_{f}"][live_rows] for f in ("kf_idx", "uv", "inv_sigma2", "valid")),
+                                           device=dev), prob["cam"],
+        Extrinsics(torch.eye(3, device=dev), torch.zeros(3, device=dev)),
+        interop.imu_chain_from_numpy(pre, np.ones(len(g["vi_pre_dt"]), bool), g["vi_bias_info"], device=dev),
+        torch.tensor(g["vi_gravity"], device=dev), torch.tensor(g["vi_fixed"], device=dev), mesh, iters=10)[0]
+    np.savez(out, r_cw=vis[0].r_cw.cpu().numpy(), t_cw=vis[0].t_cw.cpu().numpy(),
+             points=vis[0].points.cpu().numpy(), p=vi[0].nav.p.cpu().numpy(), v=vi[0].nav.v.cpu().numpy(),
+             r=vi[0].nav.r.cpu().numpy(), vi_points=vi[0].points.cpu().numpy(), vision_ms=vis_ms, vi_ms=vi_ms,
+             live_p=live.nav.p.cpu().numpy(), live_v=live.nav.v.cpu().numpy(), live_r=live.nav.r.cpu().numpy(),
+             backend=dist.get_backend(), device=str(mesh.device), start=rows.start, stop=rows.stop)
+    dist.destroy_process_group()
+    return 0
+
+
+def _distributed_phase(dev, tag: str, runs_of=(("nccl", 1), ("gloo", 2))) -> dict:
+    """Distributed bundle adjustment on the card (module docstring, phase
+    12): bench_scaling.py's problem solved by the port's single-device
+    `vision_ba` / `vi_ba`, by `distributed_vision_ba` / `distributed_vi_ba`
+    at world size 1 on NCCL in a child process, and by two gloo ranks on
+    the one card in two child processes (`runs_of`: (backend, world size)
+    each). Returns the phase's numbers."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from viorb_tpu_torch.optim.ba import _vi_cost, _vision_cost_and_chi2, vi_ba, vision_ba
+    from viorb_tpu_torch.optim.robust import CHI2_MONO_2DOF
+    from viorb_tpu_torch.parallel.distributed_ba import all_reduce_payload
+
+    t_phase = time.perf_counter()
+    prob = _dist_problem(dev)
+    cam, obs, fixed = prob["cam"], prob["obs"], prob["fixed"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    single_vis, vis_ms = _timed_runs(lambda: vision_ba(prob["vision"], obs, cam, fixed, iters=DIST_ITERS), sync)
+    single_vi, vi_ms = _timed_runs(lambda: vi_ba(prob["vi"], obs, cam, prob["ext"], prob["chain"], prob["gravity"],
+                                                 fixed, iters=DIST_ITERS), sync)
+    # tests/test_distributed_ba.py's VI problem, whose IMU chain is live: the
+    # single-device solve on the card, and the JAX package's distributed one
+    from viorb_tpu_torch import interop
+    from viorb_tpu_torch.imu.navstate import NavState
+    from viorb_tpu_torch.optim.reprojection import Extrinsics
+
+    g = _parallel_golden()
+    live_single = vi_ba(
+        interop.vi_ba_state_from_numpy({f: g[f"vi_nav0_{f}"] for f in NavState._fields}, g["vi_points0"], device=dev),
+        interop.ba_observations_from_numpy(*(g[f"vi_{f}"] for f in ("kf_idx", "uv", "inv_sigma2", "valid")),
+                                           device=dev), cam,
+        Extrinsics(torch.eye(3, device=dev), torch.zeros(3, device=dev)),
+        interop.imu_chain_from_numpy({k[len("vi_pre_"):]: v for k, v in g.items() if k.startswith("vi_pre_")},
+                                     np.ones(len(g["vi_pre_dt"]), bool), g["vi_bias_info"], device=dev),
+        torch.tensor(g["vi_gravity"], device=dev), torch.tensor(g["vi_fixed"], device=dev), iters=10)[0]
+    live_single = {k: getattr(live_single.nav, k).cpu().numpy() for k in ("p", "v")}
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def spawn(backend, world):
+        """The ranks of one run, each a child process; every one is waited
+        for with a timeout and killed if it outlives it."""
+        port, outs = free_port(), [os.path.join(out_dir, f"dist_{backend}_{world}_{r}.npz") for r in range(world)]
+        for o in outs:
+            if os.path.exists(o):
+                os.remove(o)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--distributed-child", backend,
+                                   str(world), str(r), str(port), outs[r], str(dev)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        logs, t0 = [], time.perf_counter()
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+            wall[f"{backend} {world}"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            _check(p.returncode == 0, f"distributed BA, {backend} world {world}: rank {r} exited {p.returncode}:\n"
+                                      f"{log[-3000:]}")
+        return [dict(np.load(o)) for o in outs]
+
+    def whole(ranks, key):  # the landmark rows of every rank, in rank order
+        return torch.from_numpy(np.concatenate([x[key] for x in ranks])).to(dev)
+
+    def costs(ranks):
+        """The robust cost of the whole problem before and after, vision and
+        VI, with the single-device cost functions."""
+        from viorb_tpu_torch.optim.ba import ViBAState, VisionBAState
+
+        r0 = ranks[0]
+        vis = VisionBAState(torch.from_numpy(r0["r_cw"]).to(dev), torch.from_numpy(r0["t_cw"]).to(dev),
+                            whole(ranks, "points"))
+        nav = prob["vi"].nav._replace(p=torch.from_numpy(r0["p"]).to(dev), v=torch.from_numpy(r0["v"]).to(dev),
+                                      r=torch.from_numpy(r0["r"]).to(dev))
+        vi = ViBAState(nav, whole(ranks, "vi_points"))
+        vi_cost = lambda st: float(_vi_cost(st, obs, cam, prob["ext"], prob["chain"], prob["gravity"],  # noqa: E731
+                                            CHI2_MONO_2DOF)[0])
+        return (float(_vision_cost_and_chi2(prob["vision"], obs, cam, CHI2_MONO_2DOF)[0]),
+                float(_vision_cost_and_chi2(vis, obs, cam, CHI2_MONO_2DOF)[0]), vi_cost(prob["vi"]), vi_cost(vi))
+
+    def apart(ranks):
+        r0 = ranks[0]
+        return {"r_cw": float(np.abs(r0["r_cw"] - single_vis[0].r_cw.cpu().numpy()).max()),
+                "t_cw": float(np.abs(r0["t_cw"] - single_vis[0].t_cw.cpu().numpy()).max()),
+                "p": float(np.abs(r0["p"] - single_vi[0].nav.p.cpu().numpy()).max()),
+                "v": float(np.abs(r0["v"] - single_vi[0].nav.v.cpu().numpy()).max())}
+
+    tol = {"r_cw": 1e-4, "t_cw": 1e-3, "p": 2e-3, "v": 1e-2}  # tests/test_distributed_ba.py's
+    runs, wall = {}, {}
+    for backend, world in runs_of:
+        ranks = spawn(backend, world)
+        label = f"{backend}, world size {world}"
+        if world > 1:
+            same = all(np.array_equal(ranks[0][k], x[k]) for x in ranks[1:]
+                       for k in ("r_cw", "t_cw", "p", "v", "r", "live_p", "live_v", "live_r"))
+            _check(same, f"distributed BA, {label}: the ranks' solved poses differ")
+        # the live IMU chain: its system and cost are added once, after the
+        # all-reduce (tests/test_torch_multihost.py's bounds against the
+        # single-device solve; tests/test_distributed_ba.py's against the JAX
+        # package's)
+        live = {f"{k} vs the card's single-device solve": float(np.abs(ranks[0][f"live_{k}"] - live_single[k]).max())
+                for k in ("p", "v")}
+        live.update({f"{k} vs the JAX package's": float(np.abs(ranks[0][f"live_{k}"] - g[f"vi_dist_{k}"]).max())
+                     for k in ("p", "v")})
+        live_tol = dict(zip(live, (5e-4, 1e-3, 2e-3, 1e-2)))
+        _check([(int(x["start"]), int(x["stop"])) for x in ranks]
+               == [(r * DIST_M // world, (r + 1) * DIST_M // world) for r in range(world)],
+               f"distributed BA, {label}: host_local_slice")
+        d = apart(ranks)
+        c = costs(ranks)
+        on = str(ranks[0]["device"])
+        runs[label] = dict(vision_ms=float(max(x["vision_ms"] for x in ranks)) / DIST_ITERS,
+                           vi_ms=float(max(x["vi_ms"] for x in ranks)) / DIST_ITERS, apart=d, costs=c,
+                           backend=str(ranks[0]["backend"]), live=live)
+        print(f"{tag} distributed BA, {label} (tensors on {on}{', every rank on it' if world > 1 else ''}): "
+              f"{'the ranks equal bit for bit' if world > 1 else 'one rank'}; against the single-device solve |dR| {d['r_cw']:.2e}, |dt| {d['t_cw']:.2e}, "
+              f"VI |dp| {d['p']:.2e}, |dv| {d['v']:.2e}; cost vision {c[0]:.1f} -> {c[1]:.1f}, VI {c[2]:.1f} -> "
+              f"{c[3]:.1f}; {runs[label]['vision_ms']:.3f} / {runs[label]['vi_ms']:.3f} ms an LM iteration "
+              f"(vision / VI, host clock, the card drained and the ranks joined at both ends); the live-IMU VI "
+              f"problem: " + ", ".join(f"|d{k}| {v:.2e}" for k, v in live.items()))
+        _check(all(d[k] <= tol[k] for k in tol), f"distributed BA, {label}: outside tests/test_distributed_ba.py's "
+                                                 f"tolerances of the single-device solve: {d}")
+        _check(all(live[k] <= live_tol[k] for k in live), f"distributed BA, {label}: the live-IMU VI problem outside "
+                                                          f"its bounds {live_tol}: {live}")
+        _check(c[1] < c[0] and c[3] < c[2], f"distributed BA, {label}: the cost did not fall: {c}")
+    pay_vis, pay_vi = all_reduce_payload(DIST_K, 6), all_reduce_payload(DIST_K, 15, vi=True)
+    print(f"{tag} distributed BA at K={DIST_K} M={DIST_M} R={DIST_R}, {DIST_ITERS} iterations: single device "
+          f"{vis_ms / DIST_ITERS:.3f} / {vi_ms / DIST_ITERS:.3f} ms an iteration (vision / VI); all-reduced an "
+          f"iteration: the vision BA's [S | b | cost], ((K*D)^2 + K*D + 1) x 4 = {pay_vis - 4} B, the VI BA's "
+          f"[S | b] {pay_vi - 4} B (it carries the accepted cost), each plus the candidate's 4 B cost; "
+          f"NCCL refuses two ranks on one device, so the multi-rank NCCL path is not run here (it waits for a "
+          f"machine with two or more GPUs); phase {time.perf_counter() - t_phase:.1f} s of host time, the child "
+          f"processes' wall " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
+    return dict(single_ms=(vis_ms / DIST_ITERS, vi_ms / DIST_ITERS), runs=runs, payload=(pay_vis - 4, pay_vi - 4))
 
 def _kernels_per_call(fn) -> int:
     """CUDA kernels (and device copies) one call of fn() launches, by the
@@ -3518,7 +3905,11 @@ def main() -> int:
     print(f"K1 launches by path: {json.dumps({'tracking cores': cell_launches, 'MonoSlam': slam_launches, **threaded_launches})}")
     print(f"K8 launches by path: {json.dumps(loop_k8)}")
 
-    # ---- 12. times -------------------------------------------------------
+    # ---- 12. distributed bundle adjustment -------------------------------
+    _distributed_phase(dev, tag)
+    marks.append(("12 distributed BA", time.perf_counter()))
+
+    # ---- 13. times -------------------------------------------------------
     pyr = pyramids["rendered"]
     kernel_ms, plain_ms = [], []
     for lvl, img in enumerate(pyr):
@@ -3678,7 +4069,7 @@ def main() -> int:
     print(f"{tag} two_view_init, {tv_x1.shape[0]} match slots, 256 hypotheses: {init_ms:.3f} ms a call")
 
     _check_main_thread_only("the whole run")
-    marks.append(("12", time.perf_counter()))
+    marks.append(("13 times", time.perf_counter()))
     print(f"{tag} chip_smoke.py's host seconds by phase: " + ", ".join(
         f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:]))
         + f"; {marks[-1][1] - marks[0][1]:.1f} s in all")
@@ -3707,7 +4098,7 @@ def main() -> int:
                     f"MonoSlam lock-step, async and streaming over {SLAM_FRAMES} frames each, async and "
                     f"streaming with a float32 -> uint8 switch, MonoViSlam over {VI_FRAMES} frames, the loop "
                     f"phase's MonoSlam and MonoViSlam runs, StereoSlam (with the right images' extractions) and "
-                    f"RgbdSlam over {STEREO_FRAMES} frames, StereoSlam with loop closing over {LOOP_FRAMES}, "
+                    f"RgbdSlam over {STEREO_FRAMES} frames, lock-step and threaded, StereoSlam with loop closing over {LOOP_FRAMES}, "
                     f"and the command line's runs (phase 11) (graph replays + eager extractions)",
             "launches": cell_launches + slam_launches + sum(threaded_launches.values()),
             "launches_by_path": {"tracking cores": cell_launches, "MonoSlam": slam_launches, **threaded_launches},
@@ -3746,8 +4137,8 @@ def main() -> int:
             "source": "viorb_tpu_torch/csrc/stereo_sad.cu",
             "replaces": "viorb_tpu/slam/kernels.py:324",
             "path": f"StereoSlam._attach_stereo at the initialization and each keyframe of lock-step StereoSlam "
-                    f"over the {STEREO_FRAMES}-frame stereo arc (launches_by_path: the stereo phase's runs and the "
-                    f"command line's)",
+                    f"over the {STEREO_FRAMES}-frame stereo arc (launches_by_path: the stereo phase's runs, the "
+                    f"threaded ones too, and the command line's)",
             "launches": stereo["k9_paths"]["StereoSlam"],
             "launches_by_path": stereo["k9_paths"],
             "max_abs_err": 0.0,
@@ -3769,4 +4160,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-child"]:
+        sys.exit(_distributed_child(sys.argv[2:]))
     sys.exit(main())

@@ -3,17 +3,26 @@ chip_smoke.py phase 9's streaming run with loop closing (the 100-frame
 noisy circuit fed at the camera's 10 fps), warmed up first by a lock-step
 loop run, then repeated, with a trace of each run.
 
-    python3 probes/stream_loop_trace.py [runs] [--async] [--both]
+    python3 probes/stream_loop_trace.py [runs] [--async] [--both] [--own]
 
-(`--both`: the runs in async, then as many streaming.) Per run: the Sim3
-ATE; per frame its state, inliers, frames in flight, its position error
+(`--both`: the runs in async, then as many streaming; `--own`: the threaded
+runs draw their own two-view RANSAC samples, as chip_smoke.py's async loop
+run does, where by default every run replays the reference's draws.) Per
+run: the loops closed and the Sim3 ATE against the threaded envelope
+max(5 x the lock-step loop run's, 0.20 m); the loop trace (the lock-step run
+too): each mapping job's keyframe, the frames at which the job started and
+ended, whether its keyframe was culled (and by which job) before it
+reached place recognition, `LoopCloser.detect`'s candidates with their
+scores and consistency counts, and the keyframes the queue-depth gate
+refused (frames whose interval or ratio rule fired while two jobs were
+unfinished); per frame its state, inliers, frames in flight, its position error
 after the run's own Sim3 alignment (cm), the motion model's prediction
 error (cm, async), the shift a re-base gave the last frame (cm, async),
 the jobs unfinished when it entered and whether it became a keyframe; the
 events with the frame being dispatched when they happened (loop
 correction begin and end, post-loop GBA begin and end, local BA
 write-backs with the frames the tracker was ahead of the solve's snapshot
-and the largest keyframe shift, BAs skipped, stream failures, carry
+and the largest keyframe shift, stream failures, carry
 re-anchors over 1 cm, a map publish while a frame was tracked
 synchronously); each keyframe's position error at the end (cm)."""
 import sys, time, numpy as np
@@ -30,6 +39,7 @@ from viorb_tpu_torch.slam.mono import MonoSlam  # noqa: E402
 RUNS = int(next((a for a in sys.argv[1:] if a.isdigit()), 4))
 ASYNC = "--async" in sys.argv
 BOTH = "--both" in sys.argv
+OWN = "--own" in sys.argv
 tag = cs._card()
 print(tag, flush=True)
 dev = torch.device("cuda")
@@ -48,6 +58,9 @@ CFG = dict(n_features=800, kf_max_interval=5)
 cur = [0]
 events = []
 frame_log = {}  # frame -> dict of what the instrumentation saw
+jobs_log = {}  # kf id -> what its mapping job saw
+gate_refused = []  # frames whose keyframe rule fired but the queue-depth gate refused
+lock_ate = [None]
 
 
 def ev(what):
@@ -68,6 +81,86 @@ def errors(slam):
             fi = int(np.argmin(np.abs(seq.timestamps - kf.timestamp)))
             kf_err.append((k, fi, float(np.linalg.norm(seq.c_w[fi] - (s * (R @ c) + t)))))
     return float(np.sqrt((err ** 2).mean())), per_frame, kf_err, (s, R, t)
+
+
+def trace_loop(slam):
+    """Each mapping job's frames, culls and place recognition; the gate."""
+    jobs_log.clear()
+    gate_refused.clear()
+    lc = slam.loop_closer
+    orig_job = slam._mapping_job
+
+    def job(kf_id):
+        rec = jobs_log.setdefault(kf_id, {})
+        rec["start"] = cur[0]
+        rec["queued_behind"] = slam.map._next_kf - 1 - kf_id
+        out = orig_job(kf_id)
+        rec["end"] = cur[0]
+        return out
+    slam._mapping_job = job
+    orig_on_cull = slam._on_cull
+    running = {}
+
+    def on_cull(k):
+        jobs_log.setdefault(k, {})["culled_by"] = (running.get("kf"), cur[0])
+        return orig_on_cull(k)
+    slam._on_cull = on_cull
+    orig_cull = slam._cull_keyframes
+
+    def cull(window):
+        running["kf"] = window[0]
+        return orig_cull(window)
+    slam._cull_keyframes = cull
+    orig_add = lc.add_keyframe
+
+    def add(kf_id, *a, **kw):
+        jobs_log.setdefault(kf_id, {})["bow"] = True
+        return orig_add(kf_id, *a, **kw)
+    lc.add_keyframe = add
+    orig_cands = lc.db.detect_loop_candidates
+
+    def cands(kf_id, *a, **kw):
+        out = orig_cands(kf_id, *a, **kw)
+        jobs_log.setdefault(kf_id, {})["cands"] = [(c, round(float(sc), 3)) for c, sc in out]
+        return out
+    lc.db.detect_loop_candidates = cands
+    orig_detect = lc._detect
+
+    def detect(kf_id):
+        best = orig_detect(kf_id)
+        rec = jobs_log.setdefault(kf_id, {})
+        rec["detect"] = best
+        rec["consistency"] = max(lc._consistency.values(), default=0)
+        if "cands" not in rec:
+            rec["cands"] = "not queried (cooldown or no BoW)"
+        return best
+    lc._detect = detect
+    orig_need = slam._need_new_keyframe
+
+    def need(ts):
+        out = orig_need(ts)
+        if not out and slam.async_mapping and slam._mapping_queue.unfinished_tasks >= 2 \
+                and not (slam.suppress_keyframes or slam.localization_only or slam.n_tracked <= 15):
+            with slam.map_lock:
+                ref = int((slam.map.keyframes[slam.last_kf_id].point_idx >= 0).sum())
+            if slam.frames_since_kf >= slam.kf_max_interval or (
+                    slam.frames_since_kf >= slam.kf_min_interval and slam.n_tracked < 0.6 * max(ref, 1)):
+                gate_refused.append(cur[0])
+        return out
+    slam._need_new_keyframe = need
+
+
+def print_loop_trace(slam):
+    print("  gate refused at frames " + (" ".join(map(str, gate_refused)) or "none"))
+    for k in sorted(jobs_log):
+        r = jobs_log[k]
+        if "start" not in r and "culled_by" not in r:
+            continue
+        culled = f" culled by job {r['culled_by'][0]} at frame {r['culled_by'][1]}" if "culled_by" in r else ""
+        where = "no BoW (culled first)" if not r.get("bow") else (
+            f"candidates {r.get('cands')} consistency {r.get('consistency')} -> {r.get('detect')}")
+        print(f"  kf {k}: job frames {r.get('start')}-{r.get('end')} ({r.get('queued_behind', 0)} newer "
+              f"keyframes made before it started){culled}; {where}")
 
 
 def instrument(slam):
@@ -111,16 +204,6 @@ def instrument(slam):
            f"frames past the snapshot, largest kf shift {shift:.4f}, carried {carried})")
         return out
     slam._apply_ba_result = apply
-    skipped = [slam.ba_skipped]
-    orig_mba = slam._mapping_ba
-
-    def mapping_ba(*a, **kw):
-        out = orig_mba(*a, **kw)
-        if slam.ba_skipped != skipped[0]:
-            ev(f"BA skipped (kf {a[0]})")
-            skipped[0] = slam.ba_skipped
-        return out
-    slam._mapping_ba = mapping_ba
     orig_rebase = slam._rebase_last_frame
 
     def rebase():
@@ -168,11 +251,13 @@ def run(mode):
     frame_log.clear()
     kw = dict(streaming=True) if mode == "streaming" else dict(async_mapping=True) if mode == "async" else {}
     slam = MonoSlam(cam, device=dev, vocabulary=vocab, enable_loop_closing=True, **kw, **CFG)
+    trace_loop(slam)
     if mode != "lock-step":
         instrument(slam)
     rows, t_start, failed = [], time.perf_counter(), False
+    replay = cs._two_view_replay([] if OWN and mode != "lock-step" else draws)
     try:
-        with cs._two_view_replay(draws):
+        with replay:
             for i in range(100):
                 cur[0] = i
                 frame_log.setdefault(i, {})["jobs"] = slam._mapping_queue.unfinished_tasks
@@ -190,10 +275,17 @@ def run(mode):
         ate, per_frame, kf_err, sim3 = errors(slam)
     finally:
         slam.shutdown()
-    print(f"{tag} {mode} loop run: loops {slam.loop_closer.loops_closed}, Sim3 ATE {ate:.4f} m, "
-          f"{len(per_frame)} trajectory frames, {len(slam.map.keyframes)} keyframes", flush=True)
     if mode == "lock-step":
-        return
+        lock_ate[0] = ate
+    bound = max(5.0 * lock_ate[0], 0.20)
+    ok = slam.loop_closer.loops_closed >= 1 and ate <= bound
+    print(f"{tag} {mode} loop run{' (own two-view draw)' if OWN and mode != 'lock-step' else ''}: loops "
+          f"{slam.loop_closer.loops_closed}, Sim3 ATE {ate:.4f} m (envelope {bound:.4f} m: "
+          f"{'within' if ok else 'MISSED'}), {len(per_frame)} trajectory frames, {len(slam.map.keyframes)} "
+          f"keyframes", flush=True)
+    print_loop_trace(slam)
+    if mode == "lock-step":
+        return ok
     print("  states  " + "".join(r[0][0] for r in rows))
     print("  inliers " + " ".join(str(r[1]) for r in rows))
     print("  queued  " + "".join(str(min(r[2], 9)) for r in rows))
@@ -213,9 +305,10 @@ def run(mode):
     print("  kf err cm " + " ".join(f"{k}@{fi}:{e * 100:.0f}" for k, fi, e in kf_err))
     t0 = events[0][1] if events else 0.0
     print("  events " + "; ".join(f"f{f} +{t - t0:.2f}s {w}" for f, t, w in events), flush=True)
+    return ok
 
 
 run("lock-step")  # warm-up, as chip_smoke runs the lock-step loop pair first
 for mode in (["async", "streaming"] if BOTH else ["async" if ASYNC else "streaming"]):
-    for _ in range(RUNS):
-        run(mode)
+    results = [run(mode) for _ in range(RUNS)]
+    print(f"{tag} {mode}: {sum(results)} of {RUNS} loop runs closed a loop within the envelope", flush=True)

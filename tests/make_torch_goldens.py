@@ -3,15 +3,17 @@
 (lock-step MonoViSlam), `tests/torch_front_golden.npz` (the tracking step
 and cores), `tests/torch_optim_golden.npz` (the VI optimizers and init),
 `tests/torch_loop_golden.npz` (loop closing),
-`tests/torch_stereo_golden.npz` (lock-step StereoSlam and RgbdSlam) and
-`tests/torch_cli_golden.npz` (the command line over a TUM RGB-D dump).
+`tests/torch_stereo_golden.npz` (lock-step StereoSlam and RgbdSlam),
+`tests/torch_cli_golden.npz` (the command line over a TUM RGB-D dump) and
+`tests/torch_parallel_golden.npz` (the distributed BAs).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py [SET ...]           # write
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/make_torch_goldens.py --check [SET ...]   # recompute, compare
 
-SET is `mono`, `vi`, `front`, `optim`, `loop`, `stereo` or `cli` (default:
-all seven). The mono set is described first; the others at `VI_CONFIGS`,
-`FRONT_DOC`, `OPTIM_DOC`, `LOOP_DOC`, `STEREO_DOC` and `CLI_DOC`.
+SET is `mono`, `vi`, `front`, `optim`, `loop`, `stereo`, `cli` or `parallel`
+(default: all eight). The mono set is described first; the others at
+`VI_CONFIGS`, `FRONT_DOC`, `OPTIM_DOC`, `LOOP_DOC`, `STEREO_DOC`, `CLI_DOC`
+and `PARALLEL_DOC`.
 
 The JAX package's `MonoSlam` (the reference) runs, lock-step, on the frames
 the PORT's renderer makes on the CPU (`viorb_tpu_torch.io.synthetic.
@@ -1085,10 +1087,124 @@ def make_cli() -> dict:
     }
 
 
+PARALLEL_GOLDEN = os.path.join(HERE, "torch_parallel_golden.npz")
+PARALLEL_DOC = """The reference's landmark-sharded BAs on an 8-device virtual CPU mesh
+(`distributed_vision_ba`, `distributed_vi_ba`) and its single-device
+`vision_ba` / `vi_ba`, at tests/test_distributed_ba.py's two problems, built
+as that test builds them (its `rng` fixture: default_rng(42) for each): the
+vision problem ("vision_*": 6 keyframes, 256 landmarks, every landmark seen
+by every keyframe, 0.3 px noise, perturbed poses and points, keyframe 0
+fixed, 10 iterations) and the VI problem ("vi_*": 6 NavStates on
+tests/test_ba.py's simulated arc, 128 landmarks, its preintegrated chain,
+the same noise, 10 iterations). Each holds its inputs and both solves'
+outputs. The mesh needs XLA's 8 host devices, set before JAX starts, so the
+runs go in a process of their own (`--parallel-worker`)."""
+
+
+def run_reference_parallel() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    sys.path.insert(0, HERE)
+    from test_ba import _simulate_vi_trajectory, make_world
+    from test_distributed_ba import CAM, _problem
+
+    from viorb_tpu.geometry.camera import project
+    from viorb_tpu.geometry.so3 import exp_so3
+    from viorb_tpu.imu import ImuNoise, NavState
+    from viorb_tpu.optim import BAObservations, Extrinsics, ImuChain, ViBAState, VisionBAState, vi_ba, vision_ba
+    from viorb_tpu.parallel import distributed_vi_ba, distributed_vision_ba, shard_observations
+
+    assert len(jax.devices()) == 8, jax.devices()
+    mesh = Mesh(np.array(jax.devices()), ("lm",))
+    out = {"reference_commit": np.array(reference_commit())}
+
+    def obs_arrays(prefix, obs):
+        for f in ("kf_idx", "uv", "inv_sigma2", "valid"):
+            out[f"{prefix}_{f}"] = np.asarray(getattr(obs, f))
+
+    # the vision problem (test_distributed_matches_single)
+    rng = np.random.default_rng(42)
+    k, m = 6, 256
+    pts, Rs, ts, obs = _problem(rng, k, m)
+    R0, t0 = Rs.copy(), ts.copy()
+    for i in range(1, k):
+        R0[i] = np.asarray(exp_so3(jnp.asarray(rng.normal(size=3) * 0.01))) @ Rs[i]
+        t0[i] = ts[i] + rng.normal(size=3).astype(np.float32) * 0.05
+    p0 = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.05
+    state = VisionBAState(jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(p0))
+    fixed = jnp.zeros(k, bool).at[0].set(True)
+    out_s, chi2_s = vision_ba(state, obs, CAM, fixed, iters=10)
+    obs_d = shard_observations(obs, mesh)
+    state_d = VisionBAState(state.r_cw, state.t_cw, jax.device_put(state.points, obs_d.uv.sharding))
+    out_d, chi2_d = distributed_vision_ba(state_d, obs_d, CAM, fixed, mesh, iters=10)
+    out.update(vision_r0=np.asarray(R0, np.float32), vision_t0=np.asarray(t0, np.float32),
+               vision_p0=np.asarray(p0, np.float32), vision_fixed=np.asarray(fixed))
+    obs_arrays("vision", obs)
+    for tag, o, c in (("single", out_s, chi2_s), ("dist", out_d, chi2_d)):
+        out[f"vision_{tag}_r_cw"], out[f"vision_{tag}_t_cw"] = np.asarray(o.r_cw), np.asarray(o.t_cw)
+        out[f"vision_{tag}_points"], out[f"vision_{tag}_chi2"] = np.asarray(o.points), np.asarray(c)
+
+    # the VI problem (test_distributed_vi_matches_single)
+    rng = np.random.default_rng(42)
+    navs, pres, g_w = _simulate_vi_trajectory(k)
+    m = 128
+    pts = make_world(rng, m, depth=(5.0, 12.0))
+    ext = Extrinsics.identity()
+    uvs = []
+    for p, v, R in navs:
+        uv = np.asarray(project(CAM, jnp.asarray((pts - p) @ R))).copy()
+        uv += rng.normal(size=uv.shape) * 0.3
+        uvs.append(uv.astype(np.float32))
+    obs = BAObservations(kf_idx=jnp.asarray(np.tile(np.arange(k, dtype=np.int32), (m, 1))),
+                         uv=jnp.asarray(np.stack(uvs, 1)), inv_sigma2=jnp.ones((m, k)), valid=jnp.ones((m, k), bool))
+    ps, vs, Rs = (np.stack([n[i] for n in navs]) for i in range(3))
+    z = np.zeros((k, 3), np.float32)
+    ps_n = ps + rng.normal(size=ps.shape).astype(np.float32) * 0.05
+    vs_n = vs + rng.normal(size=vs.shape).astype(np.float32) * 0.1
+    ps_n[0], vs_n[0] = ps[0], vs[0]
+    nav0 = NavState(*(jnp.asarray(x) for x in (ps_n, vs_n, Rs, z, z, z, z)))
+    pts0 = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.05
+    chain = ImuChain(
+        pre=jax.tree.map(lambda *xs: jnp.stack(xs), *pres), valid=jnp.ones(k - 1, bool),
+        bias_cov_inv_diag=jnp.concatenate([jnp.full(3, 1.0 / ImuNoise().gyro_bias_rw_var),
+                                           jnp.full(3, 1.0 / ImuNoise().acc_bias_rw_var)]) * 0.005)
+    state = ViBAState(nav0, jnp.asarray(pts0))
+    out_s, chi2_s = vi_ba(state, obs, CAM, ext, chain, jnp.asarray(g_w), fixed, iters=10)
+    obs_d = shard_observations(obs, mesh)
+    state_d = ViBAState(nav0, jax.device_put(state.points, obs_d.uv.sharding))
+    out_d, chi2_d = distributed_vi_ba(state_d, obs_d, CAM, ext, chain, jnp.asarray(g_w), fixed, mesh, iters=10)
+    obs_arrays("vi", obs)
+    for f in NavState._fields:
+        out[f"vi_nav0_{f}"] = np.asarray(getattr(nav0, f))
+    for f in chain.pre._fields:
+        out[f"vi_pre_{f}"] = np.asarray(getattr(chain.pre, f))
+    out.update(vi_points0=np.asarray(pts0, np.float32), vi_bias_info=np.asarray(chain.bias_cov_inv_diag),
+               vi_gravity=np.asarray(g_w, np.float32), vi_fixed=np.asarray(fixed))
+    for tag, o, c in (("single", out_s, chi2_s), ("dist", out_d, chi2_d)):
+        for f in ("p", "v", "r"):
+            out[f"vi_{tag}_{f}"] = np.asarray(getattr(o.nav, f))
+        out[f"vi_{tag}_chi2"] = np.asarray(c)
+    return out
+
+
+def make_parallel() -> dict:
+    import tempfile
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(HERE),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "parallel.npz")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--parallel-worker", path], env=env, check=True,
+                       timeout=900)
+        return load(path)
+
+
 SETS = {"mono": (GOLDEN, lambda: make_mono()), "vi": (VI_GOLDEN, lambda: make_vi()),
         "front": (FRONT_GOLDEN, lambda: make_front()), "optim": (OPTIM_GOLDEN, lambda: make_optim()),
         "loop": (LOOP_GOLDEN, lambda: make_loop()), "stereo": (STEREO_GOLDEN, lambda: make_stereo()),
-        "cli": (CLI_GOLDEN, lambda: make_cli())}
+        "cli": (CLI_GOLDEN, lambda: make_cli()), "parallel": (PARALLEL_GOLDEN, lambda: make_parallel())}
 
 
 def spread(data: dict) -> list:
@@ -1127,6 +1243,9 @@ def main(argv) -> int:
     if argv[:1] == ["--loop-worker"]:  # one loop run, in a process of its own (make_loop)
         np.savez_compressed(argv[2], **run_reference_loop(argv[1]))
         return 0
+    if argv[:1] == ["--parallel-worker"]:  # the mesh runs, in a process of their own (make_parallel)
+        np.savez_compressed(argv[1], **run_reference_parallel())
+        return 0
     check = "--check" in argv
     names = [a for a in argv if a != "--check"] or list(SETS)
     bad_sets = []
@@ -1162,6 +1281,12 @@ def main(argv) -> int:
         if name == "cli":
             print(f"cli: {len(data['traj'])} trajectory rows, metric ATE {float(data['ate']):.4f} m, "
                   f"dump digest {data['digest']}")
+        if name == "parallel":
+            for run in ("vision", "vi"):
+                key = "r_cw" if run == "vision" else "p"
+                d = np.abs(data[f"{run}_dist_{key}"] - data[f"{run}_single_{key}"]).max()
+                print(f"{run}: distributed vs single-device {key} {d:.2e}, RMS "
+                      f"{np.sqrt(data[run + '_dist_chi2'].mean()):.4f} / {np.sqrt(data[run + '_single_chi2'].mean()):.4f}")
         if name == "vi":
             for cfg in VI_CONFIGS:
                 print(f"{cfg}: VI init at frame {int(data[cfg + '_init_frame'])}, "

@@ -10,7 +10,8 @@ tolerances are tests/test_torch_stereo.py's (`n_stereo` is 0 throughout);
 today the per-frame counts are equal and the positions ~1e-3 m apart. Then
 the depth sample at a keyframe's features is the same from an array and
 from a tensor, the entry point defaults to the card and raises without
-one, and the threaded modes raise.
+one, and `streaming=True` means async mapping (tests/test_torch_stereo.py
+says why).
 
 One test per file: see tests/test_torch_fast.py."""
 
@@ -42,8 +43,8 @@ def test_rgbd_slam_matches_reference():
     assert (z > 0).mean() > 0.9, (z > 0).mean()
 
     for kw in ({"streaming": True}, {"async_mapping": True}):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            RgbdSlam(cam, device="cpu", **kw)
+        threaded = RgbdSlam(cam, device="cpu", **kw)
+        assert threaded.async_mapping and not threaded.streaming and threaded._worker is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             RgbdSlam(cam)

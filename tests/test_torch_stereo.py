@@ -19,8 +19,10 @@ Today the per-frame counts are equal and the positions 3e-5 m apart. Then:
 a keyframe built from arrays (`interop.frame_from_numpy`, with right u and
 depth) gets a close point exactly where its features' depth is within
 (0.1 m, 35 baselines), at the back-projected position (1e-5 m); the entry
-point defaults to the card and raises without one, and the threaded modes
-raise (ROADMAP.md queue 1).
+point defaults to the card and raises without one, and `streaming=True`
+means async mapping, as in the reference, whose stereo entry never takes
+the streaming dispatch (tests/test_torch_async_stereo.py runs the threaded
+modes).
 
 One test per file: see tests/test_torch_fast.py."""
 
@@ -100,8 +102,8 @@ def test_stereo_slam_matches_reference():
 
     _close_points_from_arrays(cam, c["baseline"])
     for kw in ({"streaming": True}, {"async_mapping": True}):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            StereoSlam(cam, baseline=c["baseline"], device="cpu", **kw)
+        threaded = StereoSlam(cam, baseline=c["baseline"], device="cpu", **kw)
+        assert threaded.async_mapping and not threaded.streaming and threaded._worker is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StereoSlam(cam, baseline=c["baseline"])

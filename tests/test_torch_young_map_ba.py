@@ -1,8 +1,8 @@
 """The port's async mapping never skips the local BA of a young map.
 
-The mapping worker skips a job's local BA while a newer keyframe waits in
-the queue (the reference's BA abort, at most twice in a row): the next job
-solves a window that holds this one's. Right after the two-view
+The reference's mapping worker skips a job's local BA while a newer
+keyframe waits in the queue (its BA abort, at most twice in a row): the
+next job solves a window that holds this one's. Right after the two-view
 initialization that rule starves the new map: the first jobs are the
 slowest of a run, the tracker inserts keyframes quickly while the map is
 small, and the reference's rule skips the first local BA after the
@@ -10,8 +10,9 @@ initialization's. Traced on the card (probes/stream_loop_trace.py, threaded
 loop runs on the noisy circuit at the camera's rate), every run that ended
 above 0.1 m had skipped that BA, and in the worst the map went unrefined
 for 14 frames while the inliers fell from 273 to 17 and tracking was lost.
-So while the map holds no more keyframes than `local_window` (the window is
-the whole map and its solve is cheap) no BA is skipped.
+So the port skips no BA while the map holds no more keyframes than
+`local_window` (the window is the whole map and its solve is cheap), and,
+on older maps too, none at all (tests/test_torch_ba_never_skipped.py).
 
 Here an async MonoSlam on the CPU tracks tests/test_torch_mono.py's
 half-size frames; the worker's first job after the initialization is held

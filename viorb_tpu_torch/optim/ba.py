@@ -49,7 +49,7 @@ same as without it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -269,6 +269,23 @@ def _apply_vision_update(state: VisionBAState, dx, dl, k, fixed_lm=None) -> Visi
     return VisionBAState(r_new, t_new, pts)
 
 
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _summed(reduce: Reduce, *parts):
+    """`parts` summed over the ranks of a landmark-sharded solve by ONE call
+    of `reduce` (the sum of a flat tensor over the ranks) on their packed
+    concatenation; as they are when `reduce` is None (one process)."""
+    if reduce is None:
+        return parts
+    flat = reduce(torch.cat([p.reshape(-1) for p in parts]))
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at: at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out
+
+
 def vision_ba(
     state: VisionBAState,
     obs: BAObservations,
@@ -277,10 +294,18 @@ def vision_ba(
     iters: int = 10,
     fixed_lm: Optional[torch.Tensor] = None,  # (M,) bool
     bf: Optional[float] = None,  # fx * baseline, for stereo observations
+    reduce: Reduce = None,
 ) -> Tuple[VisionBAState, torch.Tensor]:
     """Levenberg-Marquardt vision bundle adjustment over K keyframe poses
     and M landmarks. Returns (state, final per-observation chi2 (M,R)).
-    With stereo observations (obs.ur set), pass bf = fx * baseline."""
+    With stereo observations (obs.ur set), pass bf = fx * baseline.
+
+    `reduce` sums a flat tensor over the ranks of a landmark-sharded solve
+    (`parallel.distributed_ba`): `state.points` and `obs` are then this
+    rank's landmark rows, the reduced system and the current cost are summed
+    by one call an iteration and the candidate's cost by one more, and every
+    rank solves, accepts and damps alike; the chi2 returned is this rank's
+    rows'."""
     k = state.r_cw.shape[0]
     d = 6
     delta2 = obs.chi2_delta2()
@@ -294,10 +319,12 @@ def vision_ba(
         w = obs.inv_sigma2 * hw * obs.valid.to(r.dtype)
         cost0 = torch.sum(torch.where(obs.valid, chi2 * hw.clamp(max=1.0), torch.zeros_like(chi2)))
         S, b, Hll_inv, b_l, U = _schur_system(r, Jp, Jl, w, obs, k, d, lam)
+        S, b, cost0 = _summed(reduce, S, b, cost0)
         dx = _solve_reduced(S, b, fixed_kd, lam)
         dl = _back_substitute(Hll_inv, b_l, U, dx, obs, d)
         cand = _apply_vision_update(state, dx, dl, k, fixed_lm)
         cost1, _ = _vision_cost_and_chi2(cand, obs, cam, delta2, bf)
+        (cost1,) = _summed(reduce, cost1)
         accept = cost1 < cost0
         state = VisionBAState(*[torch.where(accept, a, b_) for a, b_ in zip(cand, state)])
         lam = torch.where(accept, (lam * 0.5).clamp(min=1e-6), (lam * 4.0).clamp(max=1e4))
@@ -484,28 +511,35 @@ def _vi_imu_system(nav: NavState, chain: ImuChain, gravity, k: int, basis=None):
     return H, g.reshape(k * d), C.reshape(k * d, 2), Hgg, g_g
 
 
-def _vi_cost(state: ViBAState, obs: BAObservations, cam, ext, chain: ImuChain, gravity, delta2):
+def _vi_cost(state: ViBAState, obs: BAObservations, cam, ext, chain: ImuChain, gravity, delta2,
+             reduce: Reduce = None):
     """Robust cost (vision + preintegration + bias walk) and the per-
-    observation chi2 (M,R)."""
+    observation chi2 (M,R). With `reduce` (`vi_ba`), the vision part is
+    summed over the ranks and the replicated IMU part added once."""
     r, _, _ = _vi_blocks(state, obs, cam, ext)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     hw = huber_weight(chi2, delta2)
     vis_cost = torch.sum(torch.where(obs.valid, chi2 * hw.clamp(max=1.0), torch.zeros_like(chi2)))
-    k = state.nav.p.shape[0]
+    (vis_cost,) = _summed(reduce, vis_cost)
+    return vis_cost + _vi_imu_cost(state.nav, chain, gravity), chi2
+
+
+def _vi_imu_cost(nav: NavState, chain: ImuChain, gravity):
+    """The robust cost of the preintegration and bias-walk edges."""
+    k = nav.p.shape[0]
     idx_i, idx_j = chain.edges(k)
-    ns_i, ns_j = _take(state.nav, idx_i), _take(state.nav, idx_j)
+    ns_i, ns_j = _take(nav, idx_i), _take(nav, idx_j)
     e = idx_i.shape[0]
-    z15 = torch.zeros((e, 15), dtype=r.dtype, device=r.device)
+    z15 = torch.zeros((e, 15), dtype=nav.p.dtype, device=nav.p.device)
     ri = (_edge_whiteners(chain) @ preint_residual(z15, z15[:, :9], ns_i, ns_j, chain.pre, gravity)[..., None])[..., 0]
     ichi2 = torch.sum(ri * ri, dim=-1)
     ihw = huber_weight(ichi2, CHI2_VI_9DOF)
     rb = bias_walk_residual(z15, z15, ns_i, ns_j)
     consec = ((idx_j - idx_i) == 1).to(ri.dtype)
     binfo = chain.bias_cov_inv_diag[None, :] * (chain.valid.to(ri.dtype) * consec)[:, None]
-    imu_cost = torch.sum(torch.where(chain.valid, ichi2 * ihw.clamp(max=1.0), torch.zeros_like(ichi2))) + torch.sum(
+    return torch.sum(torch.where(chain.valid, ichi2 * ihw.clamp(max=1.0), torch.zeros_like(ichi2))) + torch.sum(
         binfo * rb * rb
     )
-    return vis_cost + imu_cost, chi2
 
 
 def _apply_vi_update(state: ViBAState, dx, dl, k, fixed_lm=None) -> ViBAState:
@@ -530,9 +564,15 @@ def vi_ba(
     fixed_kf: torch.Tensor,
     iters: int = 10,
     fixed_lm: Optional[torch.Tensor] = None,
+    reduce: Reduce = None,
 ) -> Tuple[ViBAState, torch.Tensor]:
     """Visual-inertial windowed / global BA over K NavStates and M
-    landmarks. Returns (state, final per-observation chi2 (M,R))."""
+    landmarks. Returns (state, final per-observation chi2 (M,R)).
+
+    `reduce` as in `vision_ba`: the landmark rows' reduced system is summed
+    over the ranks by one call an iteration, the candidate's vision cost by
+    one more, and the IMU chain, which couples only the replicated
+    NavStates, adds its system and cost once, after the sum, on every rank."""
     k = state.nav.p.shape[0]
     d = 15
     delta2 = CHI2_MONO_2DOF
@@ -541,17 +581,18 @@ def vi_ba(
     lam = torch.full((), 1e-4, dtype=state.points.dtype, device=state.points.device)
     # the cost of the current state: after the first iteration, the accepted
     # candidate's (the same state, so the same value)
-    cost0, _ = _vi_cost(state, obs, cam, ext, chain, gravity, delta2)
+    cost0, _ = _vi_cost(state, obs, cam, ext, chain, gravity, delta2, reduce)
     for _ in range(iters):
         r, Jp, Jl = _vi_blocks(state, obs, cam, ext)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         w = obs.inv_sigma2 * huber_weight(chi2, delta2) * obs.valid.to(r.dtype)
         S, b, Hll_inv, b_l, U = _schur_system(r, Jp, Jl, w, obs, k, d, lam)
+        S, b = _summed(reduce, S, b)
         Himu, gimu = _vi_imu_system(state.nav, chain, gravity, k)
         dx = _solve_reduced(S + Himu, b + gimu, fixed_kd, lam)
         dl = _back_substitute(Hll_inv, b_l, U, dx, obs, d)
         cand = _apply_vi_update(state, dx, dl, k, fixed_lm)
-        cost1, _ = _vi_cost(cand, obs, cam, ext, chain, gravity, delta2)
+        cost1, _ = _vi_cost(cand, obs, cam, ext, chain, gravity, delta2, reduce)
         accept = cost1 < cost0
         cost0 = torch.where(accept, cost1, cost0)
         state = _select_vi(accept, cand, state)

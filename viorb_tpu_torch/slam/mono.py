@@ -14,9 +14,8 @@ ORB-SLAM's Tracking and LocalMapping threads:
     `wait_mapping_idle`): keyframes made after the solve's snapshot ride
     the correction through the newest solved keyframe (the spanning-tree
     pass). While two jobs are unfinished, only a twice-blown interval cap
-    may insert a keyframe, and a job skips its BA while a newer keyframe
-    waits (at most twice in a row, and never while the map holds no more
-    keyframes than `local_window`);
+    may insert a keyframe. Every job runs its local BA (the reference skips
+    it while a newer keyframe waits; below);
   * streaming (`streaming=True`, implies async): the caller's thread only
     DISPATCHES the graphed streaming core with a pose carry on the card and
     starts non-blocking copies of the frame's bookkeeping fields into
@@ -72,9 +71,19 @@ deferred-descriptor race (the handle is read once, the write-back only
 fills a missing block, both under `map_lock`), a deferred write-back onto
 a point slot culled and reused meanwhile (`MapStore.pt_gen`, compared with
 the solve's snapshot), `map_lock` held across fusion's uploads and
-dispatch, the BA skip on a young map (the first local BA after the
-initialization's skipped while keyframes pile up), and the post-loop
-global BA on a thread beside the tracker (above).
+dispatch, the async BA skip (below), and the post-loop global BA on a
+thread beside the tracker (above).
+
+The reference's async mapping skips a job's local BA while a newer
+keyframe waits (its stand-in for ORB-SLAM's BA abort, at most twice in a
+row). The port never skips it: with loop closing, the rejected Sim3
+verifications of the circuit's revisit hold the worker for 0.2-0.4 s a
+job, the keyframes of the turn queue up behind them, and their skipped BAs
+left the turn unrefined until tracking drifted 0.4-0.9 m and no
+verification passed (up to a third of the paced async loop runs on an
+H100; none of 12 without the skip); on a young map it starved the two-view
+map the same way. The local BA is one graph replay (13.5-15 ms on an
+H100), so the skip saved little.
 
 The local BAs pad their pose block to the reference's buckets
 (`optim/ba.py::pose_bucket`) and replay one CUDA graph a bucket on the
@@ -255,8 +264,7 @@ class MonoSlam:
 
         # async mapping (the reference's LocalMapping thread)
         self.async_mapping = async_mapping or streaming
-        self._ba_skips = 0  # BAs skipped in a row
-        self.ba_skipped = 0  # BAs skipped in all
+        self.ba_skipped = 0  # BAs skipped in all (only the VI flavour skips one)
         self.kfs_carried = 0  # keyframes made during a solve that followed its write-back
         self._mapping_queue: "queue.Queue[Optional[int]]" = queue.Queue()
         # the deferred local-BA write-back: (its arrays, the solve's device
@@ -1496,15 +1504,10 @@ class MonoSlam:
 
     def _mapping_ba(self, kf_id: int, window: List[int]):
         """Windowed local BA over `window` (`kf_id`'s) with outside-window
-        anchors fixed. Async: skipped while a newer keyframe waits (the
-        reference's BA abort), at most twice in a row, but never while the
-        map is young (no more keyframes than `local_window`: the window is
-        the whole map, the solve is cheap, and a two-view map left
-        unrefined while keyframes pile up degrades until tracking fails;
-        the reference skips there too), and its write-back deferred.
-        Subclasses switch the flavour (VI)."""
+        anchors fixed; async, its write-back deferred. Never skipped, where
+        the reference skips it while a newer keyframe waits (module
+        docstring). Subclasses switch the flavour (VI)."""
         with self.map_lock:
-            young = len(self.map.keyframes) <= self.local_window
             # fixed anchors: KFs observing window points but outside the window
             anchor = set()
             for p in self.map.local_map_points(window):
@@ -1517,11 +1520,6 @@ class MonoSlam:
             # keyframe or the solve is GAUGE-FREE and each run moves the
             # whole world a little
             fixed = [min(window)]
-        if self.async_mapping and not young and not self._mapping_queue.empty() and self._ba_skips < 2:
-            self._ba_skips += 1
-            self.ba_skipped += 1
-            return
-        self._ba_skips = 0
         self._local_ba(window, fixed, defer=self.async_mapping)
 
     def _tri_dispatch(self, kf_id: int, nb_ids: List[int]):

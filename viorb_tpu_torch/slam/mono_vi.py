@@ -170,6 +170,7 @@ class MonoViSlam(MonoSlam):
         self.bias_g = np.zeros(3, np.float32)
         self.bias_a = np.zeros(3, np.float32)
         self.kf_chain: List[int] = []  # keyframe ids linked by IMU segments, in order
+        self._ba_skips = 0  # local BAs skipped in a row (async: while a newer keyframe waits)
         self.init_time = 0.0
         # keep refining the init estimates until this much data exists
         self.init_refine_window = 12.0

@@ -9,8 +9,10 @@ pixel, clamped to the image, with one pull when it lies on the card. There
 is no `bf`: the BAs stay monocular, as in the reference; loop closing pins
 the Sim3 scale (the map is metric).
 
-Lock-step only, as the reference's runner and tests run it: `streaming` and
-`async_mapping` raise (ROADMAP.md queue 1, "threaded stereo and RGB-D").
+Threaded modes as `slam/stereo.py`'s: `async_mapping=True` (or
+`streaming=True`, which means the same here) tracks on the calling thread
+beside the mapping worker; a keyframe's depth is sampled and its points
+made before its job is queued.
 A frame with no motion-model anchor after initialization (a loaded map)
 relocalizes, as MonoSlam's does (`slam/stereo.py` says why).
 """
@@ -22,22 +24,21 @@ import torch
 
 from viorb_tpu_torch.geometry.camera import PinholeCamera
 from viorb_tpu_torch.slam.mono import FrameRecord, MonoSlam
-from viorb_tpu_torch.slam.stereo import DEPTH_MIN, THREADED, add_close_points, initialize_from_depth
+from viorb_tpu_torch.slam.stereo import DEPTH_MIN, add_close_points, initialize_from_depth, threaded_kwargs
 
 DEPTH_MAX = 12.0
 
 
 class RgbdSlam(MonoSlam):
-    """RGB-D SLAM with metric depth images, lock-step; features deeper than
-    `depth_max` m get no point from the depth image. Takes MonoSlam's
-    keyword arguments; `device=None` is the card."""
+    """RGB-D SLAM with metric depth images, lock-step or beside the mapping
+    worker (`async_mapping`; `streaming` means the same here); features
+    deeper than `depth_max` m get no point from the depth image. Takes
+    MonoSlam's keyword arguments; `device=None` is the card."""
 
     loop_fix_scale = True  # the map is metric: loop Sim3s and the essential graph hold s = 1
 
     def __init__(self, cam: PinholeCamera, depth_max: float = DEPTH_MAX, **kwargs):
-        if kwargs.get("streaming") or kwargs.get("async_mapping"):
-            raise NotImplementedError(THREADED)
-        super().__init__(cam, **kwargs)
+        super().__init__(cam, **threaded_kwargs(kwargs))
         self.depth_max = depth_max
         self._pending_depth = None  # the depth image of the frame being tracked
 
@@ -59,6 +60,9 @@ class RgbdSlam(MonoSlam):
         """Track one frame (an (H,W) uint8 or f32 image) with its (H,W) metric
         depth image (array or tensor; <= 0 where there is none). Returns
         MonoSlam's counts."""
+        if self.async_mapping:
+            self._ensure_threads(image)
+            self._rebase_last_frame()
         self._pending_depth = depth
         try:
             if self.state != "NOT_INITIALIZED" and self.last_frame is not None and self.last_frame.r_cw is not None:

@@ -22,8 +22,15 @@ map point. At keyframe insertion the unmatched features closer than
 two-view triangulation. The BAs add the 3-row stereo residual (`bf`, local
 BAs through their own CUDA graphs), and loop closing pins the Sim3 scale.
 
-Lock-step only, as the reference's runner and tests run it: `streaming` and
-`async_mapping` raise (ROADMAP.md queue 1, "threaded stereo and RGB-D").
+Threaded modes are the reference's: `async_mapping=True` tracks each frame
+on the calling thread beside the mapping worker, and `streaming=True` means
+the same (`threaded_kwargs`): the stereo entry never takes MonoSlam's
+streaming dispatch, in the reference either, so no collector thread starts.
+A keyframe's pair is matched (right extraction, K9) and its close points
+made on the calling thread before its job is queued, so the worker's
+triangulation, fusion and stereo BA see them; the stereo local BA's graphs
+are captured with the cores before the worker starts
+(`_capture_before_threads`, at `bf`).
 One deliberate difference: a frame with no motion-model anchor after
 initialization (a loaded map) relocalizes, as MonoSlam's does, where the
 reference's stereo path calls its tracker without a pose to predict from.
@@ -40,8 +47,17 @@ from viorb_tpu_torch.slam.kernels import match_stereo, refine_stereo_subpixel
 from viorb_tpu_torch.slam.mono import FrameRecord, MonoSlam
 
 DEPTH_MIN = 0.1
-THREADED = ("threaded stereo and RGB-D (streaming, async mapping) are not ported: ROADMAP.md queue 1, "
-            "'threaded stereo and RGB-D'")
+
+
+def threaded_kwargs(kwargs: dict) -> dict:
+    """MonoSlam's keyword arguments for a stereo or RGB-D pipeline:
+    `streaming=True` becomes `async_mapping=True`. The reference's stereo and
+    RGB-D entries call the fused tracker on the calling thread whatever the
+    flags, and its `streaming` implies async mapping: synchronous tracking
+    beside the mapping worker."""
+    if kwargs.pop("streaming", False):
+        kwargs["async_mapping"] = True
+    return kwargs
 
 
 def refine_subpixel(img_l, img_r, xy_l, ur0, matched) -> torch.Tensor:
@@ -108,24 +124,23 @@ def add_close_points(slam: MonoSlam, fr: FrameRecord, kf_id: int, z: np.ndarray,
 
 
 class StereoSlam(MonoSlam):
-    """Rectified stereo SLAM, lock-step. `baseline` in metres; close points
-    lie within `depth_factor` baselines; a match needs `min_disparity` px.
-    Takes MonoSlam's keyword arguments; `device=None` is the card, which
-    builds and loads K9 here, on the constructing thread."""
+    """Rectified stereo SLAM, lock-step or beside the mapping worker
+    (`async_mapping`; `streaming` means the same here). `baseline` in
+    metres; close points lie within `depth_factor` baselines; a match needs
+    `min_disparity` px. Takes MonoSlam's keyword arguments; `device=None` is
+    the card, which builds and loads K9 here, on the constructing thread."""
 
     loop_fix_scale = True  # the map is metric: loop Sim3s and the essential graph hold s = 1
 
     def __init__(self, cam: PinholeCamera, baseline: float, depth_factor: float = 35.0,
                  min_disparity: float = 0.5, **kwargs):
-        if kwargs.get("streaming") or kwargs.get("async_mapping"):
-            raise NotImplementedError(THREADED)
         self.baseline = float(baseline)
         self.bf = float(cam.fx) * self.baseline  # before MonoSlam's: its BA graph is the stereo one
         self.depth_th = depth_factor * self.baseline  # the close-point bound
         self.min_disparity = min_disparity
         self._img_r_pending = None  # (left, right) of a steady frame, until it is tracked
         self.right_extractions = 0  # pairs matched (_attach_stereo): one right-image extraction each
-        super().__init__(cam, **kwargs)
+        super().__init__(cam, **threaded_kwargs(kwargs))
         if self._on_card:
             from viorb_tpu_torch.slam import stereo_cuda
 
@@ -149,6 +164,9 @@ class StereoSlam(MonoSlam):
         alone; the pair is matched only if the frame becomes a keyframe.
         Returns MonoSlam's counts and `n_stereo`, the frame's features with a
         stereo match (0 for a steady frame that made no keyframe)."""
+        if self.async_mapping:
+            self._ensure_threads(img_l)
+            self._rebase_last_frame()
         if self.state != "NOT_INITIALIZED" and self.last_frame is not None and self.last_frame.r_cw is not None:
             self._img_r_pending = (img_l, img_r)
             try:
